@@ -1,0 +1,254 @@
+"""Model builder: embed -> (prefix layers + periodic stack) -> head.
+
+The port of ``repro/models/model.py`` for the dense path.  Layer plans
+come from ``ModelConfig.layer_plan()``.  The reference stacks the
+periodic body's params along a leading ``[n_periods]`` dim and runs it
+with ``lax.scan``; here ``params["stack"]`` is a list with one dict per
+period and a Python loop walks it.  The decode caches keep the
+reference's stacked layout (``caches["stack"]["l0"]["k"]`` is
+``[n_periods, B, Smax, Hkv, hd]``); each layer reads and writes its own
+slice in place.
+
+Entry points: :func:`init_model`, :func:`apply_model` (full-sequence
+logits), and for serving :func:`init_cache` / :func:`prefill` /
+:func:`decode_step`.  MLA, Mamba and MoE layers, the modality
+frontends and training come with later slices: asking for them raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
+from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
+                     norm, norm_init, swiglu)
+
+_LATER = {
+    "mla": "ROADMAP.md, slice 5 (MLA)",
+    "mamba": "ROADMAP.md, slice 2 (SSM / hybrid serving)",
+    "moe": "ROADMAP.md, slice 4 (MoE)",
+}
+
+
+def _unsupported(cfg: Any) -> None:
+    for spec in cfg.layer_plan():
+        for part in (spec.mixer, spec.ffn):
+            if part in _LATER:
+                raise NotImplementedError(
+                    f"{cfg.name}: the {part!r} layer is not ported yet "
+                    f"({_LATER[part]})")
+    if cfg.frontend is not None or cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends are not ported yet "
+            f"(ROADMAP.md, 'JAX modules still unported')")
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-token prediction is training-only and "
+            f"comes with the training slice (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# dense FFN
+# ---------------------------------------------------------------------------
+def ffn_init(gen: torch.Generator, cfg: Any, device: torch.device) -> PyTree:
+    kw = dict(dtype=cfg.param_dtype, device=device)
+    if cfg.act == "swiglu":
+        return {"gate": dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
+                "up": dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
+                "down": dense_init(gen, cfg.d_ff, cfg.d_model, **kw)}
+    return {"fc1": dense_init(gen, cfg.d_model, cfg.d_ff, bias=True, **kw),
+            "fc2": dense_init(gen, cfg.d_ff, cfg.d_model, bias=True, **kw)}
+
+
+def ffn_apply(cfg: Any, p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        return dense(p["down"], swiglu(dense(p["gate"], x),
+                                       dense(p["up"], x)))
+    return dense(p["fc2"], gelu(dense(p["fc1"], x)))
+
+
+# ---------------------------------------------------------------------------
+# one layer
+# ---------------------------------------------------------------------------
+def layer_init(gen: torch.Generator, cfg: Any, spec: Any,
+               device: torch.device) -> PyTree:
+    p = {"norm1": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, device),
+         "mixer": attn_init(gen, cfg, device)}
+    if spec.ffn is not None:
+        p["norm2"] = norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
+                               device)
+        p["ffn"] = ffn_init(gen, cfg, device)
+    return p
+
+
+def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
+                positions: torch.Tensor, mode: str = "train",
+                cache: Optional[PyTree] = None,
+                lengths: Optional[torch.Tensor] = None,
+                impl: Optional[str] = None,
+                kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """One layer; in ``prefill`` and ``decode`` mode ``cache`` (this
+    layer's ``{k, v}`` [B,Smax,Hkv,hd]) is written in place."""
+    impl = impl or getattr(cfg, "attn_impl", "chunked")
+    kernels = kernels or {}
+    h = norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    if mode == "decode":
+        y, _ = attn_decode(cfg, p["mixer"], h, cache, lengths)
+    else:
+        y, k, v = attn_apply(cfg, p["mixer"], h, positions=positions,
+                             impl=impl,
+                             kernel_fn=kernels.get("flash_attention"))
+        if mode == "prefill":
+            s = h.shape[1]
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
+    x = x + y
+    if spec.ffn is not None:
+        x = x + ffn_apply(cfg, p["ffn"],
+                          norm(cfg.norm, p["norm2"], x, cfg.norm_eps))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# whole model
+# ---------------------------------------------------------------------------
+def init_model(gen: torch.Generator, cfg: Any, *,
+               device: DeviceLike = None) -> PyTree:
+    """Random params from ``gen`` with the reference's distributions, on
+    ``device`` (default ``"cuda"``; raises where CUDA is absent).  The
+    draws run on the generator's device and are moved."""
+    dev = resolve_device(device)
+    _unsupported(cfg)
+    prefix, period, n_periods = cfg.scan_plan()
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model,
+                            dtype=cfg.param_dtype, device=dev)}
+    for i, spec in enumerate(prefix):
+        params[f"prefix_{i}"] = layer_init(gen, cfg, spec, dev)
+    params["stack"] = [
+        {f"l{j}": layer_init(gen, cfg, spec, dev)
+         for j, spec in enumerate(period)}
+        for _ in range(n_periods)]
+    params["final_norm"] = norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                     dev)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab,
+                                    dtype=cfg.param_dtype, device=dev)
+    return params
+
+
+def _head_out(cfg: Any, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+    x = norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["emb"].t().to(x.dtype)
+    return dense(params["head"], x)
+
+
+def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
+                 positions: torch.Tensor, mode: str,
+                 caches: Optional[PyTree] = None,
+                 lengths: Optional[torch.Tensor] = None,
+                 impl: Optional[str] = None,
+                 kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    prefix, period, _ = cfg.scan_plan()
+    kw = dict(positions=positions, mode=mode, lengths=lengths, impl=impl,
+              kernels=kernels)
+    for i, spec in enumerate(prefix):
+        c = None if caches is None else caches[f"prefix_{i}"]
+        x = layer_apply(cfg, spec, params[f"prefix_{i}"], x, cache=c, **kw)
+    for n, p_period in enumerate(params["stack"]):
+        for j, spec in enumerate(period):
+            c = None
+            if caches is not None:
+                c = {key: t[n] for key, t in caches["stack"][f"l{j}"].items()}
+            x = layer_apply(cfg, spec, p_period[f"l{j}"], x, cache=c, **kw)
+    return x
+
+
+@torch.no_grad()
+def apply_model(cfg: Any, params: PyTree, tokens: torch.Tensor, *,
+                impl: Optional[str] = None,
+                kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Full-sequence forward.  tokens [B, S] -> logits [B, S, V].  (The
+    reference also returns the MoE aux loss, which is 0 for the dense
+    models ported so far.)"""
+    x = embed(params["embed"], tokens, cfg.dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)
+    x = _stack_sweep(cfg, params, x, positions=positions, mode="train",
+                     impl=impl, kernels=kernels)
+    return _head_out(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+def init_cache(cfg: Any, batch: int, max_seq: int, *,
+               device: DeviceLike = None) -> PyTree:
+    dev = resolve_device(device)
+    _unsupported(cfg)
+    prefix, period, n_periods = cfg.scan_plan()
+    caches: Dict[str, Any] = {
+        f"prefix_{i}": attn_cache_init(cfg, batch, max_seq, device=dev)
+        for i in range(len(prefix))}
+    caches["stack"] = {
+        f"l{j}": {key: torch.stack([t] * n_periods) for key, t in
+                  attn_cache_init(cfg, batch, max_seq, device=dev).items()}
+        for j in range(len(period))}
+    return caches
+
+
+def cache_batch_axes(cfg: Any, caches: PyTree) -> PyTree:
+    """Nest (matching ``caches``) of the batch-dim index per leaf: 0 for
+    prefix-layer caches, 1 for stacked caches (dim 0 is the period)."""
+    def axes(t, a):
+        if isinstance(t, dict):
+            return {k: axes(v, a) for k, v in t.items()}
+        return a
+    return {k: axes(v, 1 if k == "stack" else 0) for k, v in caches.items()}
+
+
+def slot_view(cfg: Any, caches: PyTree, slot: int) -> PyTree:
+    """Views of ``caches`` holding sequence ``slot`` only (batch dim 1):
+    what is written to them lands in ``caches``."""
+    def view(t, a):
+        if isinstance(t, dict):
+            return {k: view(v, a[k]) for k, v in t.items()}
+        return t.narrow(a, slot, 1)
+    return view(caches, cache_batch_axes(cfg, caches))
+
+
+@torch.no_grad()
+def prefill(cfg: Any, params: PyTree, tokens: torch.Tensor, caches: PyTree,
+            *, impl: Optional[str] = None,
+            kernels: Optional[Dict[str, Any]] = None
+            ) -> Tuple[torch.Tensor, PyTree]:
+    """Fill rows [0, S) of the cache in place for the prompt; return
+    (last-position logits [B, 1, V], caches)."""
+    x = embed(params["embed"], tokens, cfg.dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)
+    x = _stack_sweep(cfg, params, x, positions=positions, mode="prefill",
+                     caches=caches, impl=impl, kernels=kernels)
+    return _head_out(cfg, params, x[:, -1:, :]), caches
+
+
+@torch.no_grad()
+def decode_step(cfg: Any, params: PyTree, tokens: torch.Tensor,
+                caches: PyTree, lengths: Union[int, torch.Tensor], *,
+                kernels: Optional[Dict[str, Any]] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
+    """One token for every sequence.  tokens [B, 1]; ``lengths`` is each
+    sequence's cache fill, ``[B]`` or one int for all.  Writes the cache
+    in place; returns (logits [B, 1, V], caches)."""
+    b = tokens.shape[0]
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=tokens.device).expand(b).contiguous()
+    x = embed(params["embed"], tokens, cfg.dtype)
+    x = _stack_sweep(cfg, params, x, positions=lengths[:, None],
+                     mode="decode", caches=caches, lengths=lengths,
+                     kernels=kernels)
+    return _head_out(cfg, params, x), caches

@@ -1,0 +1,141 @@
+"""The port's flash-attention wrapper (plain version on CPU tensors)
+against the Pallas kernel in interpret mode, on the same numpy inputs.
+
+The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds
+it against the plain version there."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as flash_pallas  # noqa: E402
+from repro.configs.base import ModelConfig as JConfig  # noqa: E402
+
+from repro_torch.configs.base import ModelConfig as TConfig  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+# the cases of tests/test_kernels.py, plus one-row and 7-row prompts
+FLASH_CASES = [
+    # (b, hq, hkv, sq, sk, dk, dv, causal, dtype)
+    (2, 4, 2, 128, 128, 64, 64, True, "float32"),
+    (1, 8, 8, 256, 256, 128, 128, True, "float32"),
+    (2, 4, 2, 64, 192, 32, 32, False, "float32"),
+    (1, 6, 2, 96, 96, 64, 32, True, "float32"),
+    (1, 4, 4, 128, 128, 64, 64, True, "bfloat16"),
+    (2, 2, 1, 64, 64, 16, 16, False, "bfloat16"),
+    (1, 14, 2, 7, 7, 64, 64, True, "float32"),
+    (1, 14, 2, 1, 1, 64, 64, True, "bfloat16"),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # as tests/test_kernels.py
+
+
+def _inputs(seed, b, hq, hkv, sq, sk, dk, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, dk), np.float32),
+            rng.standard_normal((b, hkv, sk, dk), np.float32),
+            rng.standard_normal((b, hkv, sk, dv), np.float32))
+
+
+def _both(arrs, dtype):
+    """The same numpy values as jax and torch arrays of ``dtype`` (both
+    round float32 to bfloat16 to nearest even)."""
+    j = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return j, t
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_plain_flash_matches_pallas_interpret(case):
+    b, hq, hkv, sq, sk, dk, dv, causal, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs(sum(case[:7]), b, hq, hkv, sq, sk, dk, dv), dtype)
+    want = flash_pallas(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                        interpret=True)
+    n0 = tfa.launches
+    got = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert tfa.launches == n0            # the CPU path launches nothing
+    assert got.dtype == tv.dtype and tuple(got.shape) == (b, hq, sq, dv)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+
+
+def test_causal_mask_is_top_left_aligned_like_pallas():
+    """With Sq != Sk the Pallas kernel keeps key j for row i when i >= j
+    (top-left); ref.py keeps j <= i + Sk - Sq (bottom-right).  The port's
+    plain version follows the kernel, its ref.py follows the reference's
+    ref.py, and the two differ."""
+    b, hq, hkv, sq, sk, d = 1, 4, 2, 32, 96, 16
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(7, b, hq, hkv, sq, sk, d, d),
+                                       "float32")
+    pallas = flash_pallas(jq, jk, jv, causal=True, block_q=16, block_k=32,
+                          interpret=True)
+    plain = tfa.flash_attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_np(plain), _np(pallas), atol=2e-5)
+    bottom_right = tref.flash_attention_ref(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(
+        _np(bottom_right), _np(jref.flash_attention_ref(jq, jk, jv,
+                                                        causal=True)),
+        atol=2e-5)
+    assert np.abs(_np(bottom_right) - _np(plain)).max() > 1e-2
+    # with Sq == Sk the two masks agree
+    sq_eq = tfa.flash_attention(tq, tk[:, :, :sq], tv[:, :, :sq])
+    np.testing.assert_allclose(
+        _np(sq_eq), _np(tref.flash_attention_ref(tq, tk[:, :, :sq],
+                                                 tv[:, :, :sq])), atol=2e-5)
+
+
+def test_model_kernels_hook_matches_model_layout():
+    """The hook takes the model's seq-major layout, as
+    tests/test_kernels.py::test_model_kernels_hooks_match_model_layout."""
+    kw = dict(n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+              vocab=64, q_block=16)
+    jhook = jops.model_kernels(JConfig(dtype=jnp.float32,
+                                       param_dtype=jnp.float32, **kw),
+                               backend="pallas")["flash_attention"]
+    thook = tops.model_kernels(TConfig(dtype=torch.float32,
+                                       param_dtype=torch.float32, **kw)
+                               )["flash_attention"]
+    rng = np.random.default_rng(3)
+    b, s = 2, 64
+    arrs = [rng.standard_normal((b, s, h, 16), np.float32)
+            for h in (4, 2, 2)]
+    want = jhook(*[jnp.asarray(a) for a in arrs], causal=True, scale=0.25)
+    got = thook(*[torch.from_numpy(a) for a in arrs], causal=True,
+                scale=0.25)
+    assert tuple(got.shape) == (b, s, 4, 16)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+def test_wrapper_never_falls_back_for_other_devices():
+    """Only CPU tensors take the plain version: a tensor on any other
+    device goes to the kernel or raises."""
+    q = torch.zeros((1, 2, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("bad", ["rank", "dtype", "groups", "mixed"])
+def test_wrapper_checks_inputs(bad):
+    q = torch.zeros((1, 4, 8, 16))
+    k = torch.zeros((1, 2, 8, 16))
+    if bad == "rank":
+        args, err = (q[0], k[0], k[0]), ValueError
+    elif bad == "dtype":
+        args, err = (q.half(), k.half(), k.half()), TypeError
+    elif bad == "groups":
+        args, err = (q[:, :3], k, k), ValueError
+    else:
+        args, err = (q, k.bfloat16(), k), TypeError
+    with pytest.raises(err):
+        tfa.flash_attention(*args)

@@ -1,0 +1,177 @@
+"""The port's serving engine against the JAX package's, on the same
+params and requests: greedy token lists and ``stats`` identical, and the
+cases of tests/test_serving.py held against both engines."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import ModelConfig as JConfig  # noqa: E402
+from repro.models import init_model as jinit  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro.serving import ServeConfig as JServe  # noqa: E402
+from repro.serving import ServingEngine as JEngine  # noqa: E402
+
+from repro_torch.configs.base import ModelConfig as TConfig  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import model_kernels  # noqa: E402
+from repro_torch.models import apply_model  # noqa: E402
+from repro_torch.serving import Request as TRequest  # noqa: E402
+from repro_torch.serving import ServeConfig as TServe  # noqa: E402
+from repro_torch.serving import ServingEngine as TEngine  # noqa: E402
+
+DENSE = dict(name="d", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+             d_ff=128, vocab=211, q_block=8)
+
+
+@pytest.fixture(scope="module")
+def dense_setup():
+    jcfg = JConfig(dtype=jnp.float32, param_dtype=jnp.float32, **DENSE)
+    tcfg = TConfig(dtype=torch.float32, param_dtype=torch.float32, **DENSE)
+    jp, _ = jinit(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _serve(setup, prompts, scfg_kw, req_kw=None, **engine_kw):
+    """Run the same requests through both engines; returns
+    (jax engine, jax finished, port engine, port finished)."""
+    jcfg, tcfg, jp, tp = setup
+    req_kw = req_kw or [{}] * len(prompts)
+    je = JEngine(jcfg, jp, JServe(**scfg_kw),
+                 use_executor=engine_kw.get("use_executor", True))
+    te = TEngine(tcfg, tp, TServe(**scfg_kw), device="cpu", **engine_kw)
+    for i, (p, kw) in enumerate(zip(prompts, req_kw)):
+        je.submit(JRequest(rid=i, prompt=p, **kw))
+        te.submit(TRequest(rid=i, prompt=p, **kw))
+    return je, je.run_until_drained(), te, te.run_until_drained()
+
+
+def _same(jdone, tdone):
+    assert [r.rid for r in tdone] == [r.rid for r in jdone]
+    assert [r.output for r in tdone] == [r.output for r in jdone]
+    assert [r.error is None for r in tdone] == [r.error is None
+                                                for r in jdone]
+
+
+@pytest.mark.parametrize("use_executor", [True, False])
+def test_greedy_tokens_and_stats_identical(dense_setup, use_executor):
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 211, 4 + 3 * i).astype(np.int32)
+               for i in range(7)]
+    je, jd, te, td = _serve(dense_setup, prompts,
+                            dict(n_slots=3, max_seq=64, max_new_tokens=6),
+                            use_executor=use_executor)
+    _same(jd, td)
+    assert te.stats == je.stats
+
+
+def test_flash_hook_engine_matches_reference(dense_setup):
+    """With the port's kernels (plain flash on CPU) the engine still
+    gives the reference engine's tokens."""
+    _, tcfg, _, _ = dense_setup
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 211, n).astype(np.int32) for n in (13, 9, 29)]
+    je, jd, te, td = _serve(dense_setup, prompts,
+                            dict(n_slots=2, max_seq=64, max_new_tokens=5),
+                            kernels=model_kernels(tcfg))
+    _same(jd, td)
+    assert te.stats == je.stats
+
+
+def test_continuous_batching_drains(dense_setup):
+    prompts = [np.arange(4 + i % 3, dtype=np.int32) for i in range(7)]
+    je, jd, te, td = _serve(dense_setup, prompts,
+                            dict(n_slots=3, max_seq=64, max_new_tokens=6))
+    assert len(td) == 7
+    assert all(len(r.output) == 6 for r in td)
+    assert te.stats["prefills"] == 7
+    assert te.stats["ticks"] >= 2
+    _same(jd, td)
+    assert te.stats == je.stats
+
+
+def test_greedy_matches_full_forward(dense_setup):
+    _, tcfg, _, tp = dense_setup
+    je, jd, te, td = _serve(dense_setup, [np.arange(7, dtype=np.int32)],
+                            dict(n_slots=2, max_seq=64, max_new_tokens=5))
+    r = td[0]
+    toks = list(r.prompt)
+    for _ in range(len(r.output)):
+        lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])
+        toks.append(int(torch.argmax(lg[0, -1])))
+    assert toks[len(r.prompt):] == r.output
+    _same(jd, td)
+
+
+def test_eos_terminates(dense_setup):
+    prompt = np.arange(5, dtype=np.int32)
+    _, jd0, _, td0 = _serve(dense_setup, [prompt],
+                            dict(n_slots=1, max_seq=64, max_new_tokens=3))
+    first = td0[0].output[0]
+    assert jd0[0].output[0] == first
+    je, jd, te, td = _serve(dense_setup, [prompt],
+                            dict(n_slots=1, max_seq=64, max_new_tokens=50,
+                                 eos_token=first))
+    assert td[0].output == [first]
+    _same(jd, td)
+    assert te.stats == je.stats
+
+
+def test_per_request_max_new(dense_setup):
+    je, jd, te, td = _serve(dense_setup, [np.arange(4, dtype=np.int32)],
+                            dict(n_slots=2, max_seq=64, max_new_tokens=10),
+                            req_kw=[dict(max_new_tokens=2)])
+    assert len(td[0].output) == 2
+    _same(jd, td)
+    assert te.stats == je.stats
+
+
+def test_oversized_prompt_rejected(dense_setup):
+    je, jd, te, td = _serve(dense_setup, [np.arange(20, dtype=np.int32)],
+                            dict(n_slots=1, max_seq=16))
+    assert td[0].done and td[0].output == [] and td[0].error
+    assert te.failed == [td[0]]
+    _same(jd, td)
+    assert te.stats == je.stats
+
+
+def test_temperature_sampling_varies(dense_setup):
+    """Distributions are not compared (the generators differ); the
+    port's samples vary with the seed, and repeat for one seed."""
+    _, tcfg, _, tp = dense_setup
+    outs = []
+    for seed in (0, 1, 2, 0):
+        eng = TEngine(tcfg, tp, TServe(n_slots=1, max_seq=64,
+                                       max_new_tokens=8, temperature=1.5,
+                                       seed=seed), device="cpu")
+        eng.submit(TRequest(rid=0, prompt=np.arange(5, dtype=np.int32)))
+        outs.append(tuple(eng.run_until_drained()[0].output))
+    assert len(set(outs)) > 1
+    assert outs[0] == outs[3]
+
+
+def test_failover_waits_for_fault_port(dense_setup):
+    _, tcfg, _, tp = dense_setup
+    with pytest.raises(NotImplementedError, match="fault"):
+        TEngine(tcfg, tp, TServe(), failover=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="fault"):
+        TEngine(tcfg, tp, TServe(), heartbeat=object(), device="cpu")
+
+
+def test_engine_runs_ticks_as_executor_tasks(dense_setup):
+    """Admission and decode are tasks of the engine's AMT executor, on
+    a private LCX runtime."""
+    prompts = [np.arange(3 + i, dtype=np.int32) for i in range(3)]
+    _, _, te, td = _serve(dense_setup, prompts,
+                          dict(n_slots=2, max_seq=32, max_new_tokens=3))
+    tasks = list(te._executor.graph.tasks.values())
+    assert {t.name for t in tasks if t.name.startswith("prefill:")} == \
+        {"prefill:0", "prefill:1", "prefill:2"}
+    assert sum(t.name == "decode" for t in tasks) >= te.stats["ticks"]
+    assert all(t.done for t in tasks)
+    assert te.lcx_runtime.name == "serving"
+    assert te._executor.runtime is te.lcx_runtime
