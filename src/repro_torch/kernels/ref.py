@@ -3,7 +3,7 @@
 slices)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,3 +28,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, v.shape[-1]).to(v.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (non-chunked) SSD recurrence, one position at a time:
+    the gold reference.  x [B,S,H,P], dt [B,S,H] (>= 0), A [H] (< 0),
+    B/C [B,S,H,N] -> y [B,S,H,P] in x's dtype, h_final [B,H,N,P] f32.
+    (The reference's ``chunk`` argument is unused there and dropped.)"""
+    b, s, h, p = x.shape
+    f32 = torch.float32
+    hstate = torch.zeros((b, h, Bm.shape[-1], p), dtype=f32,
+                         device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].to(f32)                          # [b,h]
+        hstate = hstate * torch.exp(dtt * A)[..., None, None] \
+            + torch.einsum("bh,bhn,bhp->bhnp", dtt, Bm[:, t].to(f32),
+                           x[:, t].to(f32))
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, t].to(f32), hstate))
+    return torch.stack(ys, dim=1).to(x.dtype), hstate

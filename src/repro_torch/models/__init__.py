@@ -1,6 +1,6 @@
 from .model import (apply_model, cache_batch_axes, decode_step, init_cache,
                     init_model, prefill)
-from . import attention, common, model
+from . import attention, common, model, ssm
 
 __all__ = ["apply_model", "cache_batch_axes", "decode_step", "init_cache",
-           "init_model", "prefill", "attention", "common", "model"]
+           "init_model", "prefill", "attention", "common", "model", "ssm"]

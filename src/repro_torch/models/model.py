@@ -1,18 +1,21 @@
 """Model builder: embed -> (prefix layers + periodic stack) -> head.
 
-The port of ``repro/models/model.py`` for the dense path.  Layer plans
-come from ``ModelConfig.layer_plan()``.  The reference stacks the
-periodic body's params along a leading ``[n_periods]`` dim and runs it
-with ``lax.scan``; here ``params["stack"]`` is a list with one dict per
+The port of ``repro/models/model.py`` for the dense, SSM and hybrid
+(attention + Mamba, no experts) paths.  Layer plans come from
+``ModelConfig.layer_plan()``.  The reference stacks the periodic body's
+params along a leading ``[n_periods]`` dim and runs it with
+``lax.scan``; here ``params["stack"]`` is a list with one dict per
 period and a Python loop walks it.  The decode caches keep the
-reference's stacked layout (``caches["stack"]["l0"]["k"]`` is
-``[n_periods, B, Smax, Hkv, hd]``); each layer reads and writes its own
-slice in place.
+reference's stacked layout, each layer with its own kind of cache:
+``{k, v}`` for attention (``caches["stack"]["l0"]["k"]`` is
+``[n_periods, B, Smax, Hkv, hd]``) and ``{conv, h}`` for Mamba
+(``[n_periods, B, k-1, conv_ch]`` and ``[n_periods, B, H, N, P]``).
+Each layer reads and writes its own slice in place.
 
 Entry points: :func:`init_model`, :func:`apply_model` (full-sequence
 logits), and for serving :func:`init_cache` / :func:`prefill` /
-:func:`decode_step`.  MLA, Mamba and MoE layers, the modality
-frontends and training come with later slices: asking for them raises
+:func:`decode_step`.  MLA and MoE layers, the modality frontends and
+training come with later slices: asking for them raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -25,10 +28,10 @@ from ..device import DeviceLike, resolve_device
 from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
 from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
                      norm, norm_init, swiglu)
+from .ssm import ssm_apply, ssm_cache_init, ssm_decode, ssm_init
 
 _LATER = {
     "mla": "ROADMAP.md, slice 5 (MLA)",
-    "mamba": "ROADMAP.md, slice 2 (SSM / hybrid serving)",
     "moe": "ROADMAP.md, slice 4 (MoE)",
 }
 
@@ -75,8 +78,9 @@ def ffn_apply(cfg: Any, p: PyTree, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def layer_init(gen: torch.Generator, cfg: Any, spec: Any,
                device: torch.device) -> PyTree:
+    mixer = ssm_init if spec.mixer == "mamba" else attn_init
     p = {"norm1": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, device),
-         "mixer": attn_init(gen, cfg, device)}
+         "mixer": mixer(gen, cfg, device)}
     if spec.ffn is not None:
         p["norm2"] = norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                device)
@@ -91,11 +95,24 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
                 impl: Optional[str] = None,
                 kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """One layer; in ``prefill`` and ``decode`` mode ``cache`` (this
-    layer's ``{k, v}`` [B,Smax,Hkv,hd]) is written in place."""
+    layer's ``{k, v}`` [B,Smax,Hkv,hd] or ``{conv, h}``) is written in
+    place."""
     impl = impl or getattr(cfg, "attn_impl", "chunked")
     kernels = kernels or {}
     h = norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    if mode == "decode":
+    if spec.mixer == "mamba":
+        if mode == "decode":
+            y, _ = ssm_decode(cfg, p["mixer"], h, cache)
+        else:
+            y, state = ssm_apply(cfg, p["mixer"], h,
+                                 return_cache=(mode == "prefill"),
+                                 kernel_fn=kernels.get("ssd_scan"))
+            if mode == "prefill":
+                # the whole state: nothing masks what a longer earlier
+                # prompt left in this slot
+                cache["conv"].copy_(state["conv"])
+                cache["h"].copy_(state["h"])
+    elif mode == "decode":
         y, _ = attn_decode(cfg, p["mixer"], h, cache, lengths)
     else:
         y, k, v = attn_apply(cfg, p["mixer"], h, positions=positions,
@@ -173,8 +190,8 @@ def apply_model(cfg: Any, params: PyTree, tokens: torch.Tensor, *,
                 impl: Optional[str] = None,
                 kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Full-sequence forward.  tokens [B, S] -> logits [B, S, V].  (The
-    reference also returns the MoE aux loss, which is 0 for the dense
-    models ported so far.)"""
+    reference also returns the MoE aux loss, which is 0 for the models
+    ported so far, none of which has experts.)"""
     x = embed(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
@@ -186,18 +203,25 @@ def apply_model(cfg: Any, params: PyTree, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+def layer_cache_init(cfg: Any, spec: Any, batch: int, max_seq: int,
+                     device: torch.device) -> PyTree:
+    if spec.mixer == "mamba":
+        return ssm_cache_init(cfg, batch, device=device)
+    return attn_cache_init(cfg, batch, max_seq, device=device)
+
+
 def init_cache(cfg: Any, batch: int, max_seq: int, *,
                device: DeviceLike = None) -> PyTree:
     dev = resolve_device(device)
     _unsupported(cfg)
     prefix, period, n_periods = cfg.scan_plan()
     caches: Dict[str, Any] = {
-        f"prefix_{i}": attn_cache_init(cfg, batch, max_seq, device=dev)
-        for i in range(len(prefix))}
+        f"prefix_{i}": layer_cache_init(cfg, spec, batch, max_seq, dev)
+        for i, spec in enumerate(prefix)}
     caches["stack"] = {
         f"l{j}": {key: torch.stack([t] * n_periods) for key, t in
-                  attn_cache_init(cfg, batch, max_seq, device=dev).items()}
-        for j in range(len(period))}
+                  layer_cache_init(cfg, spec, batch, max_seq, dev).items()}
+        for j, spec in enumerate(period)}
     return caches
 
 

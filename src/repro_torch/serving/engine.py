@@ -7,7 +7,11 @@ slots at their exact length; every decode tick advances all slots with
 one batched :func:`~repro_torch.models.decode_step` that takes one cache
 length per slot (the reference ``vmap``s a scalar-length decode over the
 slots instead).  Positions, the cache row written and the
-``k_pos <= length`` mask are all per slot.
+``k_pos <= length`` mask are all per slot.  Mamba layers carry a
+recurrent state (``conv``, ``h``) per slot instead of KV rows: a prefill
+overwrites the slot's whole state, and the batched decode advances every
+slot's state, free slots too, as the reference's vmapped decode does
+(harmless: the slot's next prefill overwrites it).
 
 Scheduling: each ``tick`` is driven through an AMT executor
 (:class:`repro_torch.amt.Executor`) on a private LCX runtime: one
@@ -165,9 +169,10 @@ class ServingEngine:
         try:
             toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                    device=self.device)[None]
-            # exact-length prefill straight into the slot's cache rows;
-            # rows a failed prefill may have written are masked by the
-            # slot's length and overwritten by its next prompt
+            # exact-length prefill straight into the slot's cache.  A
+            # failed prefill may leave it half written: KV rows past the
+            # slot's length are masked, an SSM state is masked by nothing,
+            # and both are overwritten by the slot's next prefill
             lg, _ = prefill(self.cfg, self.params, toks,
                             slot_view(self.cfg, self.caches, slot),
                             kernels=self.kernels)

@@ -1,8 +1,9 @@
-"""The port's flash-attention wrapper (plain version on CPU tensors)
-against the Pallas kernel in interpret mode, on the same numpy inputs.
+"""The port's kernel wrappers (plain versions on CPU tensors) against
+the Pallas kernels in interpret mode, on the same numpy inputs: flash
+attention and the SSD chunked scan.
 
-The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds
-it against the plain version there."""
+The CUDA kernels themselves run only on the card: ``chip_smoke.py``
+holds them against their plain versions there."""
 import numpy as np
 import pytest
 
@@ -17,6 +18,7 @@ from repro.configs.base import ModelConfig as JConfig  # noqa: E402
 
 from repro_torch.configs.base import ModelConfig as TConfig  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -139,3 +141,99 @@ def test_wrapper_checks_inputs(bad):
         args, err = (q, k.bfloat16(), k), TypeError
     with pytest.raises(err):
         tfa.flash_attention(*args)
+
+
+# the cases of tests/test_kernels.py, plus a prime length (the Pallas
+# wrapper's chunk falls to one row, the port keeps 64 and masks the
+# tail) and a one-row prompt
+SSD_CASES = [
+    # (b, s, h, p, n, chunk, dtype)
+    (2, 64, 3, 16, 8, 16, "float32"),
+    (1, 128, 2, 32, 16, 32, "float32"),
+    (1, 32, 4, 8, 4, 8, "float32"),
+    (2, 64, 2, 16, 8, 16, "bfloat16"),
+    (1, 37, 2, 16, 8, 16, "float32"),
+    (1, 1, 2, 16, 8, 16, "float32"),
+]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # as tests/test_kernels.py
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype):
+    """(x, dt, A, B, C) as jax and torch arrays; dt and A float32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    Bm = rng.standard_normal((b, s, h, n), np.float32)
+    Cm = rng.standard_normal((b, s, h, n), np.float32)
+    (jx, jb, jc), (tx, tb, tc) = _both((x, Bm, Cm), dtype)
+    return ((jx, jnp.asarray(dt), jnp.asarray(A), jb, jc),
+            (tx, torch.from_numpy(dt), torch.from_numpy(A), tb, tc))
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_plain_ssd_scan_matches_pallas_interpret(case):
+    b, s, h, p, n, chunk, dtype = case
+    j, t = _ssd_inputs(s + h + p, b, s, h, p, n, dtype)
+    want_y, want_h = jops.ssd_scan(*j, chunk=chunk, backend="pallas")
+    gold_y, gold_h = jref.ssd_scan_ref(*j, chunk)
+    n0 = tssd.launches
+    for fn in (tssd.ssd_scan_plain, tops.ssd_scan):
+        y, hf = fn(*t)
+        assert y.dtype == t[0].dtype and tuple(y.shape) == (b, s, h, p)
+        assert hf.dtype == torch.float32 and tuple(hf.shape) == (b, h, n, p)
+        for got, want in ((y, want_y), (hf, want_h), (y, gold_y),
+                          (hf, gold_h)):
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       atol=SSD_TOL[dtype])
+    assert tssd.launches == n0           # the CPU path launches nothing
+    ry, rh = tref.ssd_scan_ref(*t)
+    np.testing.assert_allclose(_np(ry), _np(gold_y), atol=SSD_TOL[dtype])
+    np.testing.assert_allclose(_np(rh), _np(gold_h), atol=SSD_TOL[dtype])
+
+
+def test_ssd_hook_matches_model_layout():
+    """The ``ssd_scan`` hook takes the model's layout and the chunk, as
+    the reference's hook does."""
+    kw = dict(n_layers=1, d_model=32, n_heads=1, n_kv_heads=1, d_ff=0,
+              vocab=64, family="ssm", ssm_state=8, ssm_head_dim=8,
+              ssm_chunk=16)
+    jhook = jops.model_kernels(JConfig(dtype=jnp.float32,
+                                       param_dtype=jnp.float32, **kw),
+                               backend="pallas")["ssd_scan"]
+    thook = tops.model_kernels(TConfig(dtype=torch.float32,
+                                       param_dtype=torch.float32, **kw)
+                               )["ssd_scan"]
+    j, t = _ssd_inputs(5, 2, 48, 8, 8, 8, "float32")
+    want = jhook(*j, chunk=16)
+    got = thook(*t, chunk=16)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-4)
+
+
+def test_ssd_wrapper_never_falls_back_for_other_devices():
+    """Only CPU tensors take the plain version: a tensor on any other
+    device goes to the kernel or raises."""
+    x = torch.zeros((1, 4, 2, 8), device="meta")
+    dt = torch.zeros((1, 4, 2), device="meta")
+    A = torch.zeros((2,), device="meta")
+    with pytest.raises(ValueError, match="no SSD-scan kernel"):
+        tssd.ssd_scan(x, dt, A, x, x)
+
+
+@pytest.mark.parametrize("bad", ["rank", "dtype", "dt_dtype", "shape",
+                                 "mixed"])
+def test_ssd_wrapper_checks_inputs(bad):
+    x = torch.zeros((1, 4, 2, 8))
+    dt, A, bm = torch.zeros((1, 4, 2)), torch.zeros((2,)), torch.zeros(
+        (1, 4, 2, 6))
+    args, err = {
+        "rank": ((x[0], dt, A, bm, bm), ValueError),
+        "dtype": ((x.half(), dt, A, bm.half(), bm.half()), TypeError),
+        "dt_dtype": ((x, dt.double(), A, bm, bm), TypeError),
+        "shape": ((x, dt[:, :3], A, bm, bm), ValueError),
+        "mixed": ((x, dt, A, bm.bfloat16(), bm), TypeError),
+    }[bad]
+    with pytest.raises(err):
+        tssd.ssd_scan(*args)

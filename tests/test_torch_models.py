@@ -169,11 +169,17 @@ def test_init_model_layout_and_distributions():
     assert torch.equal(again["embed"]["emb"], emb)
 
 
-@pytest.mark.parametrize("kind", ["ssm", "moe", "mla"])
+@pytest.mark.parametrize("kind", ["hybrid_moe", "moe", "mla"])
 def test_unported_layers_raise(kind):
     kw = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
               vocab=64, dtype=torch.float32, param_dtype=torch.float32)
-    extra = {"ssm": dict(family="ssm", ssm_state=16),
+    # hybrid_moe: Jamba's plan (mamba and attention layers, experts every
+    # second layer), which waits for the MoE slice
+    extra = {"hybrid_moe": dict(family="hybrid", ssm_state=16,
+                                attn_layer_period=8, attn_layer_offset=4,
+                                n_experts=4, n_experts_per_tok=2,
+                                moe_d_ff=32, expert_layer_period=2,
+                                expert_layer_offset=1),
              "moe": dict(family="moe", n_experts=4, n_experts_per_tok=2,
                          moe_d_ff=32),
              "mla": dict(q_lora_rank=16, kv_lora_rank=16)}[kind]

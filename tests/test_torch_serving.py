@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX package's, on the same
 params and requests: greedy token lists and ``stats`` identical, and the
-cases of tests/test_serving.py held against both engines."""
+cases of tests/test_serving.py held against both engines, on a dense
+model, mamba2-130m's smoke config and a hybrid (attention + Mamba)."""
 import numpy as np
 import pytest
 
@@ -10,12 +11,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import ModelConfig as JConfig  # noqa: E402
+from repro.configs.mamba2_130m import smoke as jmamba  # noqa: E402
 from repro.models import init_model as jinit  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro.serving import ServeConfig as JServe  # noqa: E402
 from repro.serving import ServingEngine as JEngine  # noqa: E402
 
 from repro_torch.configs.base import ModelConfig as TConfig  # noqa: E402
+from repro_torch.configs.mamba2_130m import smoke as tmamba  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import model_kernels  # noqa: E402
 from repro_torch.models import apply_model  # noqa: E402
@@ -25,6 +28,12 @@ from repro_torch.serving import ServingEngine as TEngine  # noqa: E402
 
 DENSE = dict(name="d", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
              d_ff=128, vocab=211, q_block=8)
+# tests/test_serving.py::test_hybrid_serving_greedy's config
+HYBRID = dict(name="h", family="hybrid", n_layers=4, d_model=64, n_heads=4,
+              n_kv_heads=2, d_ff=128, vocab=97, attn_layer_period=4,
+              attn_layer_offset=1, ssm_state=16, ssm_head_dim=16,
+              ssm_chunk=8, q_block=8)
+SSM_SERVE = dict(n_slots=2, max_seq=32, max_new_tokens=4)
 
 
 @pytest.fixture(scope="module")
@@ -175,3 +184,64 @@ def test_engine_runs_ticks_as_executor_tasks(dense_setup):
     assert all(t.done for t in tasks)
     assert te.lcx_runtime.name == "serving"
     assert te._executor.runtime is te.lcx_runtime
+
+
+@pytest.fixture(scope="module", params=["mamba2", "hybrid"])
+def ssm_setup(request):
+    if request.param == "mamba2":
+        jcfg, tcfg = jmamba(), tmamba()
+    else:
+        jcfg = JConfig(dtype=jnp.float32, param_dtype=jnp.float32, **HYBRID)
+        tcfg = TConfig(dtype=torch.float32, param_dtype=torch.float32,
+                       **HYBRID)
+    # the reference's init compiled as one program: twice as fast as op
+    # by op
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(0))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def ssm_reference(ssm_setup):
+    """Four requests on two slots through the reference engine: the
+    two-token prompts (shorter than the conv window) reuse the slots the
+    nine-token ones left, so a prefill must overwrite the whole state a
+    longer earlier prompt left."""
+    jcfg, _, jp, _ = ssm_setup
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, jcfg.vocab, n).astype(np.int32)
+               for n in (9, 9, 2, 2)]
+    je = JEngine(jcfg, jp, JServe(**SSM_SERVE))
+    for i, p in enumerate(prompts):
+        je.submit(JRequest(rid=i, prompt=p))
+    return prompts, je.run_until_drained(), je.stats
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_ssm_engine_matches_reference(ssm_setup, ssm_reference, kernels):
+    """The port's engine gives the reference engine's tokens and stats,
+    with the port's kernels (plain versions on the CPU) or without."""
+    _, tcfg, _, tp = ssm_setup
+    prompts, jd, jstats = ssm_reference
+    te = TEngine(tcfg, tp, TServe(**SSM_SERVE), device="cpu",
+                 kernels=model_kernels(tcfg) if kernels else None)
+    for i, p in enumerate(prompts):
+        te.submit(TRequest(rid=i, prompt=p))
+    _same(jd, te.run_until_drained())
+    assert te.stats == jstats
+    assert te.stats["prefills"] == 4 and not te.failed
+
+
+def test_ssm_greedy_matches_full_forward(ssm_setup):
+    """tests/test_serving.py::test_hybrid_serving_greedy on the port: the
+    engine's greedy tokens equal token-by-token apply_model."""
+    _, tcfg, _, tp = ssm_setup
+    eng = TEngine(tcfg, tp, TServe(n_slots=2, max_seq=64, max_new_tokens=4),
+                  device="cpu")
+    eng.submit(TRequest(rid=0, prompt=np.arange(6, dtype=np.int32)))
+    r = eng.run_until_drained()[0]
+    toks = list(r.prompt)
+    for _ in range(len(r.output)):
+        lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])
+        toks.append(int(torch.argmax(lg[0, -1])))
+    assert toks[len(r.prompt):] == r.output
