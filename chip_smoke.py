@@ -27,12 +27,29 @@ non-zero:
    ``apply_model`` with the same kernels;
 6. hybrid: a reduced stack of attention and Mamba layers (a check of the
    layer plan, not a published model) passes the same greedy check, and
-   both kernels launch in its prefill.
+   both kernels launch in its prefill;
+7. collectives at qwen2-0.5b's sizes, 8 ranks stacked on the card: each
+   of the 24 decoder layers (14,912,384 bf16 parameters) gathered
+   FSDP-style from 8 shards through ``kernels.ops.ring_all_gather`` (24
+   ring launches), bit for bit against LCX's ring and native all-gather;
+   reduce-scatter, all-reduce, all-to-all and broadcast on a layer in f32
+   and bf16, ring against native, with their ``Device.stats`` transfer
+   counts; a ring all-reduce of the full parameter count in f32 over 4
+   ranks (7.9 GB) against native;
+8. the quickstart (``examples/quickstart.py``'s flow, ring all-reduce
+   included) on 4 ranks as CUDA tensors;
+9. remote spawn: ``RemoteSpawner`` on 8 ranks with a ``[8, 4096]``
+   payload, and an unknown handler resolving to a ``RemoteFailure``;
+10. failover serving: the 16 requests of phase 4 through
+   ``ServingEngine(failover=True)`` at full qwen2-0.5b width, with the
+   serving device frozen after the first 8 admissions while hand-off
+   transfers are in flight; the heartbeat migrates them, every request
+   finishes, and the tokens equal phase 4's.
 
-Output: one line per check, then a ``{"kernels": [...]}`` JSON line, the
-card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX: the
-reference package is not used here.
+Output: one line per check, then a ``{"kernels": [...]}`` JSON line
+(flash attention, SSD scan, ring all-gather), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  It
+imports nothing of JAX: the reference package is not used here.
 """
 from __future__ import annotations
 
@@ -64,6 +81,18 @@ TOL = {"bfloat16": (2e-2, 1e-2), "float32": (2e-5, 1e-5)}
 # neighbouring bf16 values, one step (at most 2^-7 of |y|) apart
 SSD_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 0.0)}
 SSD_H_ATOL = 1e-4
+# ring all-gather sweep: ranks, dtypes and per-rank shard bytes (4 B to
+# 64 MiB, the range of the paper's Fig. 1 message sizes; 6 B is 3 bf16)
+RING_NS = (1, 2, 4, 8)
+RING_DTYPES = ("float32", "bfloat16", "int32")
+RING_BYTES = (4, 6, 8, 4096, 1 << 20, 64 << 20)
+FSDP_RANKS, FULL_GRAD_RANKS = 8, 4
+# ring against native sums: the ring rounds after each of its n - 1 adds,
+# native once (or n - 1 times in f32), so the two differ by at most
+# 2 * n * eps * sum_i |x_i| elementwise (eps = 2^-24 f32, 2^-8 bf16)
+SUM_EPS = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
+# qwen2-0.5b: parameters of one decoder layer and of the whole model
+QWEN_LAYER_PARAMS, QWEN_PARAMS = 14_912_384, 494_032_768
 
 
 def log(*a) -> None:
@@ -165,8 +194,9 @@ def ssd_bound_ms(b, h, s, p, n, groups, dtype_name, chunk) -> tuple:
 
 
 def _kernel_modules():
-    from repro_torch.kernels import flash_attention, ssd_scan
-    return {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    from repro_torch.kernels import flash_attention, ring_allgather, ssd_scan
+    return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "ring_allgather": ring_allgather}
 
 
 def reset_counts() -> None:
@@ -464,12 +494,13 @@ def expected_launches(cfg, prefills) -> dict:
     plan = cfg.layer_plan()
     return {"flash_attention": prefills * sum(l.mixer == "attn"
                                               for l in plan),
-            "ssd_scan": prefills * sum(l.mixer == "mamba" for l in plan)}
+            "ssd_scan": prefills * sum(l.mixer == "mamba" for l in plan),
+            "ring_allgather": 0}
 
 
 def phase_serve(arch, prompts):
     """Serve ``prompts`` at ``arch``'s full width; returns the launch
-    counts of the run."""
+    counts of the run and each request's tokens."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import model_kernels
@@ -537,7 +568,7 @@ def phase_serve(arch, prompts):
         f"launches {counts} for {eng.stats['prefills']} prefills of "
         f"{cfg.n_layers} layers; card {smi()}")
     phase_profile(cfg, params, kernels, prompts)
-    return counts
+    return counts, {r.rid: list(r.output) for r in done}
 
 
 def _greedy(cfg, params, prompt, n_new):
@@ -615,11 +646,452 @@ def phase_hybrid(prompts):
     want = expected_launches(cfg, 1)
     log(f"hybrid: prompt {len(prompt)} tokens; engine {out}; apply_model "
         f"{ref}; engine launches {counts} (expected {want})")
-    require(counts == want and all(want.values()),
+    require(counts == want and want["flash_attention"] and want["ssd_scan"],
             f"hybrid launches {counts}, expected {want}")
     require(out == ref, "hybrid engine diverged from token-by-token "
             "apply_model")
     log("hybrid: consistent")
+
+
+def ring_bound_ms(n, shard_bytes) -> float:
+    """Least time of a ring all-gather: n * S bytes read and n * n * S
+    written, against the memory rate (it does no arithmetic)."""
+    return (n * shard_bytes + n * n * shard_bytes) / PEAK_BYTES_PER_S * 1e3
+
+
+def _ring_library(x):
+    """The one PyTorch call that computes the same function."""
+    n = x.shape[0]
+    return x[:, 0].unsqueeze(0).expand((n,) + tuple(x[:, 0].shape)) \
+        .contiguous()
+
+
+def phase_ring_check():
+    """The ring kernel against its plain version and the oracle, bit for
+    bit, over the sweep; then timed at the FSDP gather's shape (a
+    qwen2-0.5b layer, bf16, over 8 ranks) and at 64 MiB shards.  Returns
+    the ring's row of the kernels line (without the launch count, which
+    comes from the collectives phase)."""
+    import torch
+    from repro_torch.kernels import ring_allgather as rg
+    from repro_torch.kernels.ref import ring_allgather_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    launches0 = rg.launches
+    n_cases = 0
+    for n in RING_NS:
+        for dt_name in RING_DTYPES:
+            dt = getattr(torch, dt_name)
+            esz = torch.empty((), dtype=dt).element_size()
+            for nbytes in RING_BYTES:
+                if nbytes % esz:
+                    continue
+                x = torch.randint(-2 ** 15, 2 ** 15, (n, 1, nbytes // esz),
+                                  generator=gen, device="cuda").to(dt)
+                out = rg.ring_all_gather(x)
+                torch.cuda.synchronize()
+                ok = (torch.equal(out, rg.ring_all_gather_plain(x))
+                      and torch.equal(out, ring_allgather_ref(x)))
+                require(ok, f"ring kernel differs from its plain version "
+                        f"at n={n} {dt_name} shard {nbytes} B")
+                n_cases += 1
+                del x, out
+    log(f"ring check: {n_cases} cases (n {RING_NS}, {RING_DTYPES}, shard "
+        f"bytes {RING_BYTES}) equal to the plain version and the oracle "
+        f"bit for bit (torch.equal)")
+
+    # the FSDP gather's shape: one layer's 14,912,384 bf16 params over 8
+    n, elems = FSDP_RANKS, QWEN_LAYER_PARAMS // FSDP_RANKS
+    x = torch.randn((n, 1, elems), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    launch = lambda: rg.ring_all_gather(x)
+    row = {
+        "name": "ring_allgather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ring_allgather.cu",
+        "replaces": "src/repro/kernels/ring_allgather.py:35",
+        "launches": None,
+        "max_abs_err": (launch().float()
+                        - rg.ring_all_gather_plain(x).float()).abs().max()
+        .item(),
+        "ms": device_ms(launch),
+        "plain_ms": device_ms(lambda: rg.ring_all_gather_plain(x)),
+        "bound_ms": ring_bound_ms(n, elems * 2),
+        "bound_by": "bytes",
+        "library_ms": device_ms(lambda: _ring_library(x)),
+    }
+    log(f"ring device time at the FSDP gather's shape [{n}, 1, {elems}] "
+        f"bf16 (ms): kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
+        f"library copy {row['library_ms']:.5f}, bound {row['bound_ms']:.6f}"
+        f" (bytes); kernel with host launch gaps (CUDA events) "
+        f"{cuda_ms(launch):.5f}")
+    del x
+    for n in (2, 4, 8):
+        x = torch.zeros((n, 1, (64 << 20) // 2), dtype=torch.bfloat16,
+                        device="cuda")
+        k_ms = device_ms(lambda: rg.ring_all_gather(x), reps=10)
+        l_ms = device_ms(lambda: _ring_library(x), reps=10)
+        bound = ring_bound_ms(n, 64 << 20)
+        log(f"ring device time at n={n}, 64 MiB shards (ms): kernel "
+            f"{k_ms:.5f} ({100 * bound / k_ms:.1f}% of bound), library "
+            f"copy {l_ms:.5f} ({100 * bound / l_ms:.1f}% of bound), bound "
+            f"{bound:.6f}")
+        del x
+    log(f"ring checks and timing launched the kernel "
+        f"{rg.launches - launches0} times (not counted below)")
+    return row
+
+
+def _layers(cfg, params):
+    """Each decoder layer's parameters flattened into one vector."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+    prefix, period, n_periods = cfg.scan_plan()
+    layers = [params[f"prefix_{i}"] for i in range(len(prefix))]
+    layers += [per[f"l{j}"] for per in params["stack"]
+               for j in range(len(period))]
+    return [torch.cat([t.reshape(-1) for t in tree_leaves(l)])
+            for l in layers]
+
+
+def _host_ms(fn):
+    """(result, host ms) of ``fn`` ending in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _collective(label, dev, fn, want_transfers, reps=3):
+    """Run ``fn`` timed, then ``reps`` times in a row under the profiler;
+    check its ``Device.stats`` transfers; returns the first run's
+    result."""
+    before = dev.stats["transfers"]
+    out, ms = _host_ms(fn)
+    moved = dev.stats["transfers"] - before
+    require(moved == want_transfers,
+            f"{label}: {moved} transfers, expected {want_transfers}")
+    wall, kern = trace(lambda: [fn() for _ in range(reps)])
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"collective {label}: host {ms:.3f} ms; {reps} profiled reruns "
+        f"wall {wall / reps:.3f} ms each, device busy {busy / reps:.3f} ms "
+        f"({100 * busy / wall:.1f}%, {sum(e.count for e in kern)} kernels "
+        f"recorded); {moved} transfers")
+    return out
+
+
+def _check_sum(label, ring, native, x, n):
+    """Ring against native within 2 n eps sum_i |x_i|, rank by rank."""
+    eps = SUM_EPS[str(x.dtype)[6:]]
+    tol = (2 * n * eps) * x.float().abs().sum(0)
+    if ring.shape != x.shape:             # reduce-scatter: rank r's slice
+        tol = tol.reshape(ring.shape)
+    worst = 0.0
+    for r in range(ring.shape[0]):
+        err = (ring[r].float() - native[r].float()).abs()
+        bound = tol[r] if ring.shape != x.shape else tol
+        require(bool((err <= bound).all()), f"{label}: ring and native "
+                f"sums differ beyond 2 n eps sum|x| at rank {r}")
+        worst = max(worst, err.max().item())
+        del err
+    log(f"collective {label}: ring vs native max_abs_err {worst:.3e} "
+        f"(bound 2*n*eps*sum|x|, eps {eps})")
+
+
+def phase_collectives():
+    """LCX collectives at qwen2-0.5b's sizes on 8 (and 4) stacked ranks.
+    Returns the ring kernel's launches in the FSDP gather."""
+    import torch
+    import repro_torch.core as lcx
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model
+    from repro_torch.models.common import param_count
+
+    cfg = get_config("qwen2-0.5b")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    layers = _layers(cfg, params)
+    n = FSDP_RANKS
+    require(len(layers) == cfg.n_layers and all(
+        l.numel() == QWEN_LAYER_PARAMS for l in layers),
+        f"layer sizes {[l.numel() for l in layers]}")
+    shards = [l.reshape(n, 1, -1) for l in layers]
+    lcx.init()
+    with lcx.ranks.bind_axis("x", n):
+        dev = lcx.Device(axis="x")
+        # FSDP-style gather through the ring kernel: the path's own run
+        torch.cuda.synchronize()
+        reset_counts()
+        gathered, ms = _host_ms(lambda: [ops.ring_all_gather(
+            s, "x", axis_size=n) for s in shards])
+        counts = read_counts()
+        require(counts == {"flash_attention": 0, "ssd_scan": 0,
+                           "ring_allgather": cfg.n_layers},
+                f"FSDP gather launches {counts}")
+        log(f"fsdp gather: {cfg.n_layers} layers x {QWEN_LAYER_PARAMS} bf16 "
+            f"params over {n} ranks through ops.ring_all_gather: host "
+            f"{ms:.3f} ms ({ms / cfg.n_layers:.4f} ms per layer, bound "
+            f"{ring_bound_ms(n, QWEN_LAYER_PARAMS // n * 2):.6f}); "
+            f"launches {counts}")
+        lcx_ms = {"ring": 0.0, "native": 0.0}
+        for layer, s, g in zip(layers, shards, gathered):
+            for backend in ("ring", "native"):
+                before = dev.stats["transfers"]
+                want, t = _host_ms(lambda: lcx.all_gather(
+                    s, device=dev, backend=backend, tiled=False))
+                lcx_ms[backend] += t
+                moved = dev.stats["transfers"] - before
+                require(moved == (n - 1 if backend == "ring" else 0),
+                        f"{backend} all_gather made {moved} transfers")
+                require(torch.equal(g, want.reshape(g.shape)),
+                        f"ring kernel gather differs from LCX {backend}")
+            require(all(torch.equal(g[r].reshape(-1), layer)
+                        for r in range(n)), "a rank's row does not "
+                    "reassemble the layer")
+        require(read_counts()["ring_allgather"] == cfg.n_layers,
+                "LCX's all_gather launched the ring kernel")
+        log(f"fsdp gather: all {cfg.n_layers} layers equal LCX's ring and "
+            f"native all_gather (tiled=False) bit for bit and every rank "
+            f"reassembles each layer; LCX host ms over the {cfg.n_layers} "
+            f"layers: ring "
+            f"{lcx_ms['ring']:.3f}, native {lcx_ms['native']:.3f}")
+        del gathered
+
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt)[6:]
+            x = (0.02 * torch.randn((n, QWEN_LAYER_PARAMS), generator=gen,
+                                    device="cuda")).to(dt)
+            for op, ring_be in (("reduce_scatter", "ring"),
+                                ("all_reduce", "ring"),
+                                ("all_to_all", "pairwise")):
+                fn = getattr(lcx, op)
+                hops = 2 * (n - 1) if op == "all_reduce" else n - 1
+                ring = _collective(f"{op} {ring_be} {name} [{n}, "
+                                   f"{QWEN_LAYER_PARAMS}]", dev,
+                                   lambda: fn(x, device=dev,
+                                              backend=ring_be), hops)
+                native = _collective(f"{op} native {name}", dev,
+                                     lambda: fn(x, device=dev,
+                                                backend="native"), 0)
+                if op == "all_to_all":
+                    require(torch.equal(ring, native),
+                            f"all_to_all pairwise differs from native "
+                            f"({name})")
+                else:
+                    _check_sum(f"{op} {name}", ring, native, x, n)
+                del ring, native
+            out = _collective(f"broadcast root 3 {name}", dev,
+                              lambda: lcx.broadcast(x, device=dev, root=3),
+                              0)
+            require(all(torch.equal(out[r], x[3]) for r in range(n)),
+                    f"broadcast differs from root 3's row ({name})")
+            del out, x
+        lcx.barrier(device=dev)
+        log("collective barrier: ok")
+
+    # the full gradient of qwen2-0.5b in f32, all-reduced over 4 ranks
+    m, total = FULL_GRAD_RANKS, param_count(params)
+    del params, layers, shards
+    release()
+    require(total == QWEN_PARAMS, f"qwen2-0.5b has {total} params")
+    with lcx.ranks.bind_axis("x", m):
+        dev = lcx.Device(axis="x")
+        x = torch.randn((m, total), generator=gen, device="cuda")
+        peak = {}
+        outs = {}
+        for backend in ("ring", "native"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs[backend], ms = _host_ms(lambda: lcx.all_reduce(
+                x, device=dev, backend=backend))
+            peak[backend] = torch.cuda.max_memory_allocated()
+            log(f"full-gradient all_reduce {backend}: [{m}, {total}] f32 "
+                f"({x.numel() * 4} bytes), host {ms:.3f} ms, "
+                f"max_memory_allocated {peak[backend]} bytes "
+                f"({peak[backend] - base} above the live tensors before)")
+        require(all(torch.equal(outs["ring"][0], outs["ring"][r])
+                    for r in range(m)), "ring all_reduce rows differ")
+        _check_sum("full-gradient all_reduce f32", outs["ring"],
+                   outs["native"], x, m)
+        del x, outs
+    return counts["ring_allgather"]
+
+
+def _quickstart(lcx, x):
+    """``examples/quickstart.py``'s per-rank body on rank-stacked ``x``."""
+    lcx.init()
+    dev = lcx.Device(axis="x")
+    sync = lcx.Synchronizer(threshold=1)
+    op = lcx.put_x(x).perm(lcx.Perm.shift(1)).remote_comp(sync).device(dev)
+    op()
+    lcx.progress()
+    (ev,) = sync.wait()
+    neighbour = ev.payload
+    cq = lcx.CompletionQueue()
+    fh = lcx.FunctionHandler(lambda e: e.payload * 2)
+    lcx.am_x(x).perm(lcx.Perm.shift(2)).remote_comp(cq).device(dev)()
+    lcx.am_x(x).perm(lcx.Perm.shift(1)).remote_comp(fh).device(dev)()
+    lcx.progress()
+    from_two_away = cq.pop().payload
+    doubled = fh.results[0]
+    eng = lcx.MatchingEngine(kind="map", policy="rank_tag")
+    s2 = lcx.Synchronizer(threshold=2)
+    lcx.send_x(x * 10).perm(lcx.Perm.shift(1)).tag(7).comp(s2) \
+        .matching_engine(eng).device(dev)()
+    lcx.recv_x(x).perm(lcx.Perm.shift(1)).tag(7).comp(s2) \
+        .matching_engine(eng).device(dev)()
+    lcx.progress()
+    matched = [e.payload for e in s2.wait() if e.payload is not None][0]
+    total = lcx.all_reduce(x, device=dev, backend="ring")
+    return neighbour, from_two_away, doubled, matched, total
+
+
+def phase_quickstart():
+    import torch
+    import repro_torch.core as lcx
+    xs = torch.arange(4.0, device="cuda")
+    with lcx.ranks.bind_axis("x", 4):
+        (nb, two, dbl, matched, total), ms = _host_ms(
+            lambda: _quickstart(lcx, xs))
+    want = (xs.roll(1), xs.roll(2), 2 * xs.roll(1), 10 * xs.roll(1),
+            torch.full_like(xs, float(xs.sum())))
+    for name, g, w in zip(("neighbour", "two away", "am handler",
+                           "matched", "ring all-reduce"),
+                          (nb, two, dbl, matched, total), want):
+        require(g.device.type == "cuda" and torch.equal(g, w),
+                f"quickstart {name}: {g} != {w}")
+    log(f"quickstart on 4 CUDA ranks: left neighbour {nb.tolist()}, two "
+        f"away {two.tolist()}, am handler {dbl.tolist()}, matched "
+        f"{matched.tolist()}, ring all-reduce {total.tolist()}; host "
+        f"{ms:.3f} ms")
+
+
+def phase_remote():
+    import torch
+    import repro_torch.amt as amt
+    import repro_torch.core as lcx
+    n = 8
+    x = torch.randn((n, 4096), generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    amt.clear_task_handlers()
+    amt.register_task_handler("affine", lambda v: v * 2.0 + 1.0)
+    lcx.init()
+    with lcx.ranks.bind_axis("x", n):
+        ex = amt.Executor(device=lcx.Device(axis="x"))
+        sp = amt.RemoteSpawner(ex)
+        promise = sp.spawn("affine", x, lcx.Perm.shift(1))
+        stats, ms = _host_ms(ex.run)
+        require(torch.equal(promise.result, x * 2.0 + 1.0),
+                "remote spawn reply differs from the handler's result")
+        amt.register_task_handler("ghost", lambda v: v)
+        ghost = sp.spawn("ghost", x, lcx.Perm.shift(1))
+        amt.clear_task_handlers()
+        ex.run()
+        res = ghost.result
+    require(isinstance(res, amt.RemoteFailure)
+            and res.status == "unknown_handler" and not res.ok,
+            f"unknown handler resolved to {res!r}")
+    log(f"remote spawn on {n} ranks, payload [{n}, 4096] on "
+        f"{x.device}: reply equals the handler's result; host {ms:.3f} ms;"
+        f" executor {stats}; unknown handler -> RemoteFailure("
+        f"{res.status!r}); spawner stats {sp.stats}")
+
+
+def phase_failover(prompts, want_tokens):
+    """Serve phase 4's requests with ``failover=True``; freeze the serving
+    device after the first 8 admissions, with 8 hand-off puts (each
+    admitted prompt, on the card) posted before the freeze and 8 after,
+    all in flight when the heartbeat must notice."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import model_kernels
+    from repro_torch.models import init_model
+    from repro_torch.runtime import HeartbeatMonitor
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    cfg = get_config("qwen2-0.5b")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    hb = HeartbeatMonitor(threshold=2.0, patience=2, grace=3,
+                          on_dead="failover")
+    eng = ServingEngine(cfg, params, ServeConfig(
+        n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+        max_new_tokens=SERVE_NEW), kernels=model_kernels(cfg),
+        failover=True, heartbeat=hb)
+    ex, rt = eng._executor, eng.lcx_runtime
+    primary = ex.device
+    sent = [torch.as_tensor(p, device="cuda") for p in prompts]
+    got, mark = {}, {}
+
+    def handoff(i):
+        def run(ctx):
+            ctx.put(sent[i], None, tag=i, max_retries=16)
+            return ctx.suspend(lambda ev: got.setdefault(
+                i, (ev.payload, time.perf_counter(), ev.migrated)))
+        return run
+
+    def killer(ctx):
+        mark["tick"], mark["t"] = rt.tick, time.perf_counter()
+        primary.freeze()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p))
+    eng.tick()
+    require(eng.stats["prefills"] == SERVE_SLOTS,
+            f"first tick admitted {eng.stats['prefills']}")
+    for i in range(8):
+        ex.spawn(handoff(i), priority=4, name=f"handoff:{i}")
+    ex.spawn(killer, priority=2, name="killer")
+    for i in range(8, len(prompts)):
+        ex.spawn(handoff(i), priority=0, name=f"handoff:{i}")
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    require(len(done) == len(prompts) and not eng.failed,
+            f"{len(done)} of {len(prompts)} finished, failed: "
+            f"{[r.error for r in eng.failed]}")
+    require(all(len(r.output) == SERVE_NEW and r.error is None
+                for r in done), f"outputs {[len(r.output) for r in done]}")
+    require(len(hb.events) == 1 and hb.events[0]["device"] is primary,
+            f"heartbeat events {hb.events}")
+    ev = hb.events[0]
+    target = ev["target"]
+    require(ev["policy"] == "failover" and target is not primary
+            and target.alive and not primary.alive
+            and ex.device is primary.resolve_migrated(),
+            f"declaration {ev}, executor on {ex.device}")
+    require(rt.failover_stats["failovers"] == 1, f"{rt.failover_stats}")
+    require(sorted(got) == list(range(len(prompts))) and all(
+        torch.equal(got[i][0], sent[i]) for i in got),
+        f"hand-offs delivered: {sorted(got)}")
+    migrated = sum(m for _, _, m in got.values())
+    require(migrated >= len(prompts) - 8, f"only {migrated} hand-offs "
+            f"were delivered by the survivor")
+    want = expected_launches(cfg, len(prompts))
+    require(counts == want, f"launches {counts}, expected {want}")
+    tokens = {r.rid: list(r.output) for r in done}
+    require(tokens == want_tokens, "failover serve tokens differ from the "
+            "serve phase's for the same prompts")
+    recovery_ms = (max(t for _, t, _ in got.values()) - mark["t"]) * 1e3
+    log(f"failover serve: {cfg.name} full width, {len(done)} requests x "
+        f"{SERVE_NEW} tokens in {wall:.3f} s; serving device frozen at "
+        f"LCX tick {mark['tick']} after {SERVE_SLOTS} admissions, declared "
+        f"dead at tick {ev['tick']} ({ev['tick'] - mark['tick']} ticks), "
+        f"migrated to {target!r}; all {len(got)} hand-offs delivered "
+        f"({migrated} by the survivor), the last {recovery_ms:.3f} ms "
+        f"after the freeze; report "
+        f"{ev['report']}; failover stats {rt.failover_stats}; executor "
+        f"{ex.stats}; launches {counts}; tokens equal the serve phase's; "
+        f"card {smi()}")
 
 
 def release() -> None:
@@ -647,19 +1119,27 @@ def main() -> int:
     m_prompts = _prompts(get_config("mamba2-130m").vocab)
     flash = phase_kernel_check([len(p) for p in prompts])
     ssd = phase_ssd_check([len(p) for p in m_prompts])
-    flash["launches"] = phase_serve("qwen2-0.5b", prompts)["flash_attention"]
+    ring = phase_ring_check()
+    counts, qwen_tokens = phase_serve("qwen2-0.5b", prompts)
+    flash["launches"] = counts["flash_attention"]
     release()
-    ssd["launches"] = phase_serve("mamba2-130m", m_prompts)["ssd_scan"]
+    ssd["launches"] = phase_serve("mamba2-130m", m_prompts)[0]["ssd_scan"]
     release()
     phase_greedy("qwen2-0.5b", prompts)
     release()
     phase_greedy("mamba2-130m", m_prompts)
     release()
     phase_hybrid(m_prompts)
+    release()
+    ring["launches"] = phase_collectives()
+    release()
+    phase_quickstart()
+    phase_remote()
+    phase_failover(prompts, qwen_tokens)
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, ssd]}))
+    print(json.dumps({"kernels": [flash, ssd, ring]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

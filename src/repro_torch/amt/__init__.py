@@ -6,8 +6,8 @@ that runtime for the repo: :class:`TaskGraph` DAGs of fine-grained
 tasks, a completion-driven :class:`Executor` whose worker loop
 interleaves task execution with explicit ``lcx.progress()`` and retires
 communication-suspended tasks from completion objects (never blocking
-waits).  ``RemoteSpawner`` (``repro/amt/remote.py``) comes with a later
-slice.
+waits).  :class:`RemoteSpawner` spawns tasks on peer ranks over LCX
+active messages and resolves a promise with the peer's reply.
 
 Client in the port: the serving engine
 (:class:`repro_torch.serving.ServingEngine`) admits prefill/decode work
@@ -17,8 +17,12 @@ completion-object contract.
 from .task import Task, TaskGraph, TaskState
 from .executor import (DependencyError, Executor, PENDING, TaskContext,
                        TaskStatus)
+from .remote import (RemoteFailure, RemoteSpawner, clear_task_handlers,
+                     register_task_handler, task_handler)
 
 __all__ = [
     "Task", "TaskGraph", "TaskState",
     "DependencyError", "Executor", "PENDING", "TaskContext", "TaskStatus",
+    "RemoteFailure", "RemoteSpawner", "clear_task_handlers",
+    "register_task_handler", "task_handler",
 ]

@@ -27,8 +27,10 @@ enqueue handler tasks, and any completion object with ``ready()``
 (Synchronizer, CounterCompletion, custom ``signal`` overloads) can be
 watched to resolve promise tasks.  See ``docs/amt.md`` for the
 executor ↔ completion-object contract; ``repro_torch.serving`` is the
-port's in-repo client.  The collectives of ``repro.core.collectives``
-come with a later slice.
+port's in-repo client.  The collectives (``all_gather``,
+``reduce_scatter``, ``all_reduce``, ``all_to_all``, ``broadcast``,
+``barrier``) are compositions of LCX puts over rank-stacked tensors
+under ``ranks.bind_axis`` (:mod:`repro_torch.core.collectives`).
 """
 from . import ranks
 from .flex import FlexOp, REQUIRED, plain
@@ -46,6 +48,9 @@ from .resources import (CompletionError, CompletionObject, CompletionQueue,
 from .ops import (PostHandle, am, am_x, cancel, get, get_x, progress,
                   progress_x, put, put_x, recv, recv_x, register_memory,
                   register_rcomp, send, send_x, sendrecv)
+from .collectives import (all_gather, all_gather_x, all_reduce, all_reduce_x,
+                          all_to_all, all_to_all_x, barrier, broadcast,
+                          broadcast_x, reduce_scatter, reduce_scatter_x)
 
 __all__ = [
     "FlexOp", "REQUIRED", "plain",
@@ -60,5 +65,8 @@ __all__ = [
     "resolve_resources", "runtime", "signal_error",
     "PostHandle", "am", "am_x", "cancel", "get", "get_x", "progress",
     "progress_x", "put", "put_x", "recv", "recv_x", "register_memory",
-    "register_rcomp", "send", "send_x", "sendrecv", "ranks",
+    "register_rcomp", "send", "send_x", "sendrecv",
+    "all_gather", "all_gather_x", "all_reduce", "all_reduce_x",
+    "all_to_all", "all_to_all_x", "barrier", "broadcast", "broadcast_x",
+    "reduce_scatter", "reduce_scatter_x", "ranks",
 ]

@@ -10,15 +10,39 @@
   kernel's block size (``cfg.ssm_chunk``); the CUDA kernel keeps its own
   chunk of ``ssd_scan.CHUNK`` rows, which changes only the order of the
   f32 sums.
+
+``ring_all_gather(x, axis, *, axis_size)`` is the ring kernel's own entry
+point, as in the reference: LCX's ``all_gather`` does not call it.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+import torch
+
+from ..core import ranks
+from . import ring_allgather as _ring
 from .flash_attention import flash_attention
 from .ssd_scan import ssd_scan
 
-__all__ = ["flash_attention", "ssd_scan", "model_kernels"]
+__all__ = ["flash_attention", "ssd_scan", "ring_all_gather",
+           "model_kernels"]
+
+
+def ring_all_gather(x: torch.Tensor, axis: str, *,
+                    axis_size: int) -> torch.Tensor:
+    """Rank-stacked ``x [axis_size, 1, *r] -> [axis_size, axis_size, *r]``
+    through the ring kernel (its plain version for a CPU tensor).  ``axis``
+    must be bound to ``axis_size`` ranks (``ranks.bind_axis``), as the
+    reference runs under ``shard_map`` over that axis."""
+    if x.dim() == 0 or x.shape[0] != axis_size:
+        raise ValueError(f"rank-stacked x has shape {tuple(x.shape)}, "
+                         f"axis_size is {axis_size}")
+    bound = ranks.axis_size(axis)
+    if bound != axis_size:
+        raise ValueError(f"axis {axis!r} is bound to {bound} ranks, "
+                         f"axis_size is {axis_size}")
+    return _ring.ring_all_gather(x)
 
 
 def model_kernels(cfg: Any) -> Dict[str, Callable[..., Any]]:

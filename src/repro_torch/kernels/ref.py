@@ -1,6 +1,6 @@
 """Plain-PyTorch oracles, one for each kernel of the port (the port of
-``repro/kernels/ref.py``; the other kernels' oracles come with their
-slices)."""
+``repro/kernels/ref.py``; the grouped matmul's oracle comes with its
+slice)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -49,3 +49,11 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            x[:, t].to(f32))
         ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, t].to(f32), hstate))
     return torch.stack(ys, dim=1).to(x.dtype), hstate
+
+
+def ring_allgather_ref(x: torch.Tensor) -> torch.Tensor:
+    """Rank-stacked ``x [n, 1, *r] -> [n, n, *r]`` with ``out[r] =
+    x[:, 0]``: ``lax.all_gather(x[0], axis, tiled=False)`` for every
+    rank."""
+    n = x.shape[0]
+    return x[:, 0].unsqueeze(0).expand((n,) + tuple(x[:, 0].shape)).clone()

@@ -17,8 +17,12 @@ Scheduling: each ``tick`` is driven through an AMT executor
 (:class:`repro_torch.amt.Executor`) on a private LCX runtime: one
 admission task per queued request (priority = arrival order) and one
 decode task depending on all of them.  ``use_executor=False`` keeps the
-inline loop.  Failover (``failover=True`` or a ``heartbeat``) waits for
-the port of ``runtime/fault.py``.
+inline loop.  With ``failover=True`` or a ``heartbeat``, a warm standby
+device joins the serving device's axis and a
+:class:`~repro_torch.runtime.HeartbeatMonitor` (by default
+``on_dead="failover"``) watches the engine's LCX runtime: if the serving
+device stops beating mid-stream, its endpoints and in-flight traffic
+migrate to a survivor and the executor re-dispatches the affected tasks.
 
 Besides ``stats`` (the reference's counters), ``timings`` keeps the
 host time of every prefill and decode tick in milliseconds; both end
@@ -39,6 +43,7 @@ from ..amt import Executor
 from ..device import DeviceLike, resolve_device
 from ..models import decode_step, init_cache, prefill
 from ..models.model import slot_view
+from ..runtime.fault import HeartbeatMonitor
 
 PyTree = Any
 
@@ -86,15 +91,13 @@ class ServingEngine:
                  failover: bool = False,
                  heartbeat: Optional[Any] = None,
                  device: DeviceLike = None) -> None:
-        if failover or heartbeat is not None:
-            raise NotImplementedError(
-                "serving failover needs runtime/fault.py, which is not "
-                "ported yet (ROADMAP.md, slice 4)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
         self.kernels = kernels
+        self.heartbeat: Optional[Any] = heartbeat
+        self.standby_device: Optional[Any] = None
         if use_executor:
             # The engine owns a private LCX runtime unless the application
             # injects one, so its admission traffic never mixes with the
@@ -106,6 +109,16 @@ class ServingEngine:
             self.lcx_runtime: Optional[Any] = lcx_runtime
             self._executor: Optional[Executor] = Executor(
                 name="serving", runtime=lcx_runtime, device=lcx_device)
+            if failover or heartbeat is not None:
+                # Warm standby on the serving device's axis: if the
+                # heartbeat declares the primary dead mid-stream, its
+                # endpoints and in-flight admission traffic migrate here
+                # and the executor re-dispatches the affected tasks.
+                primary = self._executor.device
+                self.standby_device = lcx_runtime.device(axis=primary.axis)
+                if self.heartbeat is None:
+                    self.heartbeat = HeartbeatMonitor(on_dead="failover")
+                self.heartbeat.attach(lcx_runtime)
         else:
             self.lcx_runtime = lcx_runtime
             self._executor = None

@@ -217,3 +217,147 @@ def test_ranked_comm_task_resumes_from_cq_twin(n_events):
                                   n_events * v + sum(range(n_events)))
     assert tout == jout
     assert jout["stats"]["tasks_resumed"] == 1
+
+
+# -- remote spawning (tests/test_amt.py, tests/test_faults.py) ---------------
+@pytest.fixture
+def clean_handlers():
+    jamt.clear_task_handlers()
+    tamt.clear_task_handlers()
+    yield
+    jamt.clear_task_handlers()
+    tamt.clear_task_handlers()
+
+
+def _ranked_spawn(name, reply, forget=False):
+    """Rank r spawns ``name`` on rank r+1 with its value; returns the
+    promise's value, or what the handler computed on the peer when
+    ``reply`` is False.  ``forget`` clears the handler table after the
+    spawn, as if the peer never registered it."""
+    def body(lcx, amt, x, out):
+        lcx.init()
+        ex = amt.Executor(device=lcx.Device(axis="x"))
+        sp = amt.RemoteSpawner(ex)
+        promise = sp.spawn(name, x, lcx.Perm.shift(1), reply=reply)
+        if forget:
+            amt.clear_task_handlers()
+        out["stats"] = ex.run()
+        out["spawner"] = dict(sp.stats)
+        out["dev"] = dict(ex.device.stats)
+        if promise is None:
+            (t,) = [t for t in ex.graph.tasks.values()
+                    if t.name == f"remote:{name}"]
+            return t.result
+        if isinstance(promise.result, amt.RemoteFailure):
+            out["failure"] = (promise.result.status, promise.result.ok,
+                              promise.result.message)
+            return x
+        return promise.result
+    return body
+
+
+def _ranked_twin(body):
+    xs = np.arange(float(N), dtype=np.float32)
+    jout, tout = {}, {}
+    want = jax.vmap(lambda x: body(jlcx, jamt, x, jout), axis_name="x")(
+        jnp.asarray(xs))
+    with tlcx.ranks.bind_axis("x", N):
+        got = body(tlcx, tamt, torch.from_numpy(xs), tout)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tout == jout
+    return got.numpy(), tout
+
+
+def test_remote_spawn_roundtrips_result_between_neighbors_twin(
+        clean_handlers):
+    for amt in (jamt, tamt):
+        amt.register_task_handler("affine", lambda v: v * 2.0 + 1.0)
+    got, out = _ranked_twin(_ranked_spawn("affine", reply=True))
+    np.testing.assert_array_equal(got, 2.0 * np.arange(N) + 1.0)
+    assert out["dev"]["transfers"] == 2
+
+
+def test_remote_spawn_no_reply_executes_on_peer_twin(clean_handlers):
+    calls = []
+    for amt in (jamt, tamt):
+        amt.register_task_handler(
+            "double", lambda v: calls.append(1) or v * 2.0)
+    got, out = _ranked_twin(_ranked_spawn("double", reply=False))
+    assert len(calls) == 2                 # one body per side
+    assert out["stats"]["tasks_run"] == 1
+    np.testing.assert_array_equal(got, 2.0 * np.array([3.0, 0.0, 1.0, 2.0]))
+
+
+def test_ranked_unknown_handler_resolves_remote_failure_twin(
+        clean_handlers):
+    """The error reply travels back along the inverse ring: a dummy
+    scalar per rank in the reference, a rank-stacked zeros(n) here."""
+    for amt in (jamt, tamt):
+        amt.register_task_handler("ghost", lambda p: p)
+    _, out = _ranked_twin(_ranked_spawn("ghost", reply=True, forget=True))
+    assert out["failure"][:2] == ("unknown_handler", False)
+    assert out["spawner"]["unknown_handlers"] == 1
+
+
+def test_remote_spawn_unknown_handler_raises_twin(clean_handlers):
+    def scenario(lcx, amt, scalar):
+        sp = amt.RemoteSpawner(amt.Executor())
+        try:
+            sp.spawn("nope", scalar(0), None)
+        except KeyError as e:
+            return "KeyError", str(e)
+        return None
+    assert _twin(scenario)[0] == "KeyError"
+
+
+def test_remote_unknown_handler_resolves_remote_failure_twin(
+        clean_handlers):
+    def scenario(lcx, amt, scalar):
+        amt.clear_task_handlers()
+        ex = amt.Executor()
+        sp = amt.RemoteSpawner(ex)
+        amt.register_task_handler("ghost", lambda p: p)
+        promise = sp.spawn("ghost", scalar(1.0), lcx.Perm.shift(0))
+        amt.clear_task_handlers()
+        stats = ex.run()
+        res = promise.result
+        return (type(res).__name__, res.status, res.ok, res.message,
+                dict(sp.stats), stats)
+    name, status, ok, _, sp_stats, _ = _twin(scenario)
+    assert (name, status, ok) == ("RemoteFailure", "unknown_handler", False)
+    assert sp_stats["unknown_handlers"] == 1
+
+
+def test_remote_handler_exception_resolves_remote_failure_twin(
+        clean_handlers):
+    def scenario(lcx, amt, scalar):
+        ex = amt.Executor()
+        sp = amt.RemoteSpawner(ex)
+        amt.register_task_handler("boom", lambda p: 1 / 0)
+        amt.register_task_handler("double", lambda p: p * 2)
+        p_bad = sp.spawn("boom", scalar(1.0), lcx.Perm.shift(0))
+        p_ok = sp.spawn("double", scalar(3.0), lcx.Perm.shift(0))
+        stats = ex.run()
+        return (p_bad.result.status, p_bad.result.message,
+                float(p_ok.result), dict(sp.stats), stats)
+    status, message, ok, sp_stats, _ = _twin(scenario)
+    assert status == "handler_error" and "ZeroDivisionError" in message
+    assert ok == 6.0 and sp_stats["handler_errors"] == 1
+
+
+def test_task_handler_decorator_registers_by_name(clean_handlers):
+    @tamt.task_handler()
+    def triple(v):
+        return v * 3
+
+    @tamt.task_handler("named")
+    def other(v):
+        return v
+
+    tlcx.init()
+    ex = tamt.Executor()
+    sp = tamt.RemoteSpawner(ex)
+    p1 = sp.spawn("triple", torch.tensor(2.0), tlcx.Perm.shift(0))
+    p2 = sp.spawn("named", torch.tensor(5.0), tlcx.Perm.shift(0))
+    ex.run()
+    assert float(p1.result) == 6.0 and float(p2.result) == 5.0

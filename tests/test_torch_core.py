@@ -236,8 +236,7 @@ def test_hierarchy_and_resolution_twin():
     _twin(scenario)
 
 
-# -- the quickstart on 4 ranks (examples/quickstart.py, without the ring
-#    all-reduce: the collectives come with a later slice) -------------------
+# -- the quickstart on 4 ranks (examples/quickstart.py) ----------------------
 def _quickstart(lcx, x, stats):
     lcx.init()
     dev = lcx.Device(axis="x")
@@ -261,9 +260,10 @@ def _quickstart(lcx, x, stats):
         .matching_engine(eng).device(dev)()
     lcx.progress()
     matched = [e.payload for e in s2.wait() if e.payload is not None][0]
+    total = lcx.all_reduce(x, device=dev, backend="ring")
     stats["dev"] = dict(dev.stats)
     stats["pool"] = dict(lcx.runtime().default_pool.stats)
-    return neighbour, from_two_away, doubled, matched
+    return neighbour, from_two_away, doubled, matched, total
 
 
 def test_quickstart_four_ranks_twin():
@@ -276,6 +276,7 @@ def test_quickstart_four_ranks_twin():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(got[0].numpy(), np.roll(xs, 1))
+    np.testing.assert_array_equal(got[4].numpy(), np.full(N, xs.sum()))
     assert tstats == jstats
     assert jstats["dev"]["transfers"] > 0
 

@@ -106,6 +106,18 @@ def test_serving_engine_without_device_raises(no_cuda):
         ServingEngine(smoke(), {}, ServeConfig(n_slots=1, max_seq=8))
 
 
+def test_failover_engine_and_reshard_without_device_raise(no_cuda):
+    """The failover path and elastic_reshard default to the card too."""
+    from repro_torch.configs.qwen2_0_5b import smoke
+    from repro_torch.runtime import elastic_reshard
+    from repro_torch.serving import ServeConfig, ServingEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(smoke(), {}, ServeConfig(n_slots=1, max_seq=8),
+                      failover=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic_reshard({"w": torch.zeros(2)}, {"w": None})
+
+
 def test_chip_smoke_refuses_without_cuda_or_repo(no_cuda, tmp_path):
     """It exits non-zero and prints no result where CUDA is absent, and
     in a directory that holds chip_smoke.py and nothing else."""

@@ -1,14 +1,20 @@
 """The port's kernel wrappers (plain versions on CPU tensors) against
 the Pallas kernels in interpret mode, on the same numpy inputs: flash
-attention and the SSD chunked scan.
+attention, the SSD chunked scan and the ring all-gather.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py``
 holds them against their plain versions there."""
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -17,7 +23,9 @@ from repro.kernels.flash_attention import flash_attention as flash_pallas  # noq
 from repro.configs.base import ModelConfig as JConfig  # noqa: E402
 
 from repro_torch.configs.base import ModelConfig as TConfig  # noqa: E402
+from repro_torch.core import ranks  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ring_allgather as tring  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -237,3 +245,102 @@ def test_ssd_wrapper_checks_inputs(bad):
     }[bad]
     with pytest.raises(err):
         tssd.ssd_scan(*args)
+
+
+# -- ring all-gather ---------------------------------------------------------
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def test_plain_ring_allgather_matches_pallas_interpret():
+    """The Pallas ring kernel under shard_map over n of 8 forced host
+    devices (interpret mode, as tests/test_multidevice.py runs it) against
+    ``ring_all_gather`` on a CPU tensor, bit for bit, for n in {2, 4, 8}
+    and float32 / bfloat16 / int32."""
+    from repro.kernels.ring_allgather import tpu_interpret_available
+    if not tpu_interpret_available():
+        pytest.skip("this JAX lacks the pltpu TPU interpret machinery")
+    code = textwrap.dedent("""
+        import jax, jax.numpy as jnp, numpy as np, torch
+        from jax.sharding import Mesh, PartitionSpec as P
+        from repro.compat import shard_map
+        from repro.kernels.ring_allgather import ring_all_gather
+        from repro_torch.kernels import ring_allgather as tring
+        rng = np.random.default_rng(0)
+        for n in (2, 4, 8):
+            mesh = Mesh(np.array(jax.devices()[:n]), ("x",))
+            f = jax.jit(shard_map(
+                lambda s: ring_all_gather(s, "x", axis_size=n), mesh,
+                in_specs=P("x", None), out_specs=P("x", None)))
+            for dt in ("float32", "bfloat16", "int32"):
+                x = rng.integers(-999, 999, (n, 24)).astype(np.float32)
+                jx = jnp.asarray(x).astype(dt)
+                want = np.asarray(f(jx)).reshape(n, n, 24)
+                tx = torch.from_numpy(x).to(getattr(torch, dt))
+                got = tring.ring_all_gather(tx[:, None])
+                assert tring.launches == 0
+                if dt == "bfloat16":
+                    want = want.view(np.uint16)
+                    got = got.view(torch.int16).numpy().view(np.uint16)
+                else:
+                    got = got.numpy()
+                assert got.dtype == want.dtype, (got.dtype, want.dtype)
+                assert (got == want).all(), (n, dt)
+                print("ok", n, dt)
+        """)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=420)
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nERR:\n{out.stderr}"
+    assert out.stdout.count("ok") == 9
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("rest", [(), (3,), (2, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_plain_ring_allgather_matches_reference_oracle(n, rest, dtype):
+    """``ring_all_gather`` on a CPU tensor against the reference's
+    ``ring_allgather_ref`` (``lax.all_gather`` under vmap) and the port's
+    oracle, bit for bit."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(-999, 999, (n, 1) + rest).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jax.vmap(lambda s: jref.ring_allgather_ref(s, "x"),
+                               axis_name="x")(jx)).astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tring.ring_all_gather(tx)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (n, n) + rest
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert torch.equal(got, tref.ring_allgather_ref(tx))
+    assert torch.equal(got, tring.ring_all_gather_plain(tx))
+
+
+def test_ring_wrapper_never_falls_back_for_other_devices():
+    """Only CPU tensors take the plain version: a tensor on any other
+    device goes to the kernel or raises."""
+    x = torch.zeros((4, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="no ring all-gather kernel"):
+        tring.ring_all_gather(x)
+    assert tring.launches == 0
+
+
+@pytest.mark.parametrize("shape", [(4,), (4, 2, 8), (0, 1, 8)])
+def test_ring_wrapper_checks_inputs(shape):
+    with pytest.raises(ValueError, match="rank-stacked"):
+        tring.ring_all_gather(torch.zeros(shape))
+
+
+def test_ring_all_gather_op_checks_the_axis():
+    """``ops.ring_all_gather`` (the reference's entry point) needs x's
+    ranks to match ``axis_size`` and the axis to be bound to it."""
+    x = torch.arange(8.0).reshape(4, 1, 2)
+    with ranks.bind_axis("x", 4):
+        out = tops.ring_all_gather(x, "x", axis_size=4)
+        assert torch.equal(out, tref.ring_allgather_ref(x))
+        with pytest.raises(ValueError, match="axis_size"):
+            tops.ring_all_gather(x, "x", axis_size=2)
+    with ranks.bind_axis("x", 2), pytest.raises(ValueError, match="bound"):
+        tops.ring_all_gather(x, "x", axis_size=4)
+    with pytest.raises(NameError):
+        tops.ring_all_gather(x, "y", axis_size=4)

@@ -164,11 +164,22 @@ def test_temperature_sampling_varies(dense_setup):
 
 
 def test_failover_waits_for_fault_port(dense_setup):
+    """``runtime/fault.py`` is ported: ``failover=True`` attaches a default
+    failover heartbeat and a warm standby on the serving device's axis,
+    and a given ``heartbeat`` is attached as it is (the engine's failover
+    run is in tests/test_torch_fault.py)."""
+    from repro_torch.runtime import HeartbeatMonitor
     _, tcfg, _, tp = dense_setup
-    with pytest.raises(NotImplementedError, match="fault"):
-        TEngine(tcfg, tp, TServe(), failover=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="fault"):
-        TEngine(tcfg, tp, TServe(), heartbeat=object(), device="cpu")
+    eng = TEngine(tcfg, tp, TServe(), failover=True, device="cpu")
+    assert isinstance(eng.heartbeat, HeartbeatMonitor)
+    assert eng.heartbeat.on_dead == "failover"
+    assert eng.lcx_runtime.heartbeat is eng.heartbeat
+    assert eng.standby_device.alive
+    assert eng.standby_device.axis == eng._executor.device.axis
+    hb = HeartbeatMonitor(on_dead="drain")
+    eng = TEngine(tcfg, tp, TServe(), heartbeat=hb, device="cpu")
+    assert eng.heartbeat is hb and eng.lcx_runtime.heartbeat is hb
+    assert TEngine(tcfg, tp, TServe(), device="cpu").heartbeat is None
 
 
 def test_engine_runs_ticks_as_executor_tasks(dense_setup):
