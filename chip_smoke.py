@@ -9,26 +9,34 @@ non-zero:
 1. device: CUDA with compute capability (9, 0), the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port, one ``nvcc`` each, in parallel;
-3. kernel checks: each kernel (flash attention, SSD scan) against its
-   plain PyTorch version on the card, at the serving shapes and a few
-   others, then timed beside its plain version and, where one exists,
-   one PyTorch library call;
-4. serve, one path after another: ``qwen2-0.5b`` and then
-   ``mamba2-130m``, each at full width in bf16 (random weights from seed
-   0), answer 16 requests through ``ServingEngine`` (LCX runtime + AMT
-   executor) with the port's kernels.  The launch counts are set to 0
-   just before each run and read just after: every kernel of the path
-   must have launched once per layer of its kind and prefill, and no
-   other.  Then a prefill and four decode ticks run under
-   ``torch.profiler``, which reports the device's busy share and the
-   kernels that take its time;
-5. greedy consistency: for each of the two models at full width in
-   float32, the engine's greedy tokens equal token-by-token
+3. kernel checks: each kernel (flash attention, SSD scan, the MoE
+   grouped matmul) against its plain PyTorch version on the card, at the
+   serving shapes and a few others, then timed beside its plain version
+   and, where one exists, one PyTorch library call;
+4. serve, one path after another: ``qwen2-0.5b``, ``mamba2-130m`` and
+   ``qwen3-moe-30b-a3b`` (48 layers, ~30.5 B parameters), each at full
+   width in bf16 (random weights from seed 0, drawn on the card), answer
+   16 requests through ``ServingEngine`` (LCX runtime + AMT executor)
+   with the port's kernels.  The launch counts are set to 0 just before
+   each run and read just after: flash and SSD must have launched once
+   per layer of their kind and prefill, the grouped matmul three times
+   per MoE layer and prefill or decode tick (decode runs the experts
+   too), and no kernel of another path.  Then a prefill and four decode
+   ticks run under ``torch.profiler``, which reports the device's busy
+   share and the kernels that take its time;
+5. greedy consistency: for each model at full width in float32
+   (qwen3-moe-30b-a3b cut to 4 layers, capacity factor E/k so that
+   nothing drops), the engine's greedy tokens equal token-by-token
    ``apply_model`` with the same kernels;
-6. hybrid: a reduced stack of attention and Mamba layers (a check of the
-   layer plan, not a published model) passes the same greedy check, and
-   both kernels launch in its prefill;
-7. collectives at qwen2-0.5b's sizes, 8 ranks stacked on the card: each
+6. hybrid: reduced stacks of attention and Mamba layers, without and
+   with Jamba's experts (checks of the layer plan, not published models),
+   pass the same greedy check, and each kernel of the plan launches in
+   its prefill;
+7. LCX expert-parallel dispatch: one qwen3-moe-30b-a3b MoE layer at full
+   width, 8 ranks of 512 tokens stacked on the card, through
+   ``models.moe._moe_ep_shard`` with the native and the pairwise
+   all-to-all, each rank bit-equal to its own sort-path MoE;
+8. collectives at qwen2-0.5b's sizes, 8 ranks stacked on the card: each
    of the 24 decoder layers (14,912,384 bf16 parameters) gathered
    FSDP-style from 8 shards through ``kernels.ops.ring_all_gather`` (24
    ring launches), bit for bit against LCX's ring and native all-gather;
@@ -36,18 +44,19 @@ non-zero:
    and bf16, ring against native, with their ``Device.stats`` transfer
    counts; a ring all-reduce of the full parameter count in f32 over 4
    ranks (7.9 GB) against native;
-8. the quickstart (``examples/quickstart.py``'s flow, ring all-reduce
+9. the quickstart (``examples/quickstart.py``'s flow, ring all-reduce
    included) on 4 ranks as CUDA tensors;
-9. remote spawn: ``RemoteSpawner`` on 8 ranks with a ``[8, 4096]``
+10. remote spawn: ``RemoteSpawner`` on 8 ranks with a ``[8, 4096]``
    payload, and an unknown handler resolving to a ``RemoteFailure``;
-10. failover serving: the 16 requests of phase 4 through
+11. failover serving: the 16 requests of phase 4 through
    ``ServingEngine(failover=True)`` at full qwen2-0.5b width, with the
    serving device frozen after the first 8 admissions while hand-off
    transfers are in flight; the heartbeat migrates them, every request
    finishes, and the tokens equal phase 4's.
 
 Output: one line per check, then a ``{"kernels": [...]}`` JSON line
-(flash attention, SSD scan, ring all-gather), the card's name and power
+(flash attention, SSD scan, ring all-gather, grouped matmul), the card's
+name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX: the reference package is not used here.
 """
@@ -93,6 +102,19 @@ FSDP_RANKS, FULL_GRAD_RANKS = 8, 4
 SUM_EPS = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
 # qwen2-0.5b: parameters of one decoder layer and of the whole model
 QWEN_LAYER_PARAMS, QWEN_PARAMS = 14_912_384, 494_032_768
+# grouped matmul vs plain version: both sum d products in f32 in other
+# orders, each within d * u * sum_k |x_k w_k| of the exact sum (u = 2^-24),
+# so they differ by at most 2 d u sum_k |x_k w_k|; each output is then
+# rounded once to its dtype, which in bf16 can put the two one bf16 step
+# (at most 2^-7 of the larger magnitude) apart
+GMM_U = 2.0 ** -24
+GMM_ROUND = {"bfloat16": 2.0 ** -7, "float32": 0.0}
+# qwen3-moe-30b-a3b's expert shapes [E, C, d] @ [E, d, f], per projection
+MOE_E, MOE_D, MOE_F = 128, 2048, 768
+GMM_CAPS = (8, 16, 24, 40)             # decode (8 slots) and prefills
+GMM_RAGGED = ((4, 24, 80, 96), (3, 5, 100, 7), (2, 130, 33, 65))
+EP_RANKS, EP_TOKENS = 8, 512           # C = 40 a rank, ep * C = 320
+MOE_GREEDY_LAYERS = 4
 
 
 def log(*a) -> None:
@@ -193,10 +215,21 @@ def ssd_bound_ms(b, h, s, p, n, groups, dtype_name, chunk) -> tuple:
             nbytes / PEAK_BYTES_PER_S * 1e3)
 
 
+def gmm_bound_ms(e, c, d, f, dtype_name) -> tuple:
+    """(operations ms, bytes ms) for one grouped matmul on these inputs:
+    2 E C d f operations against the tensor-core rate; xb and w read
+    once and the output written once against the memory rate."""
+    esz = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (e * c * d + e * d * f + e * c * f) * esz
+    return (2 * e * c * d * f / PEAK_FLOPS[dtype_name] * 1e3,
+            nbytes / PEAK_BYTES_PER_S * 1e3)
+
+
 def _kernel_modules():
-    from repro_torch.kernels import flash_attention, ring_allgather, ssd_scan
+    from repro_torch.kernels import (flash_attention, moe_gmm,
+                                     ring_allgather, ssd_scan)
     return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-            "ring_allgather": ring_allgather}
+            "ring_allgather": ring_allgather, "moe_gmm": moe_gmm}
 
 
 def reset_counts() -> None:
@@ -443,6 +476,115 @@ def phase_ssd_check(serve_lens):
     return row
 
 
+def _gmm_case(gen, e, c, d, f, dtype):
+    """Inputs of one grouped matmul: x as normed hidden states, w with
+    the init's 1/sqrt(d) scale."""
+    import torch
+    x = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         * d ** -0.5).to(dtype)
+    return x, w
+
+
+def _gmm_err(out, ref, x, w):
+    """(max abs error, within the stated bound?) of ``out`` against the
+    plain version's ``ref``."""
+    import torch
+    bound = 2 * x.shape[2] * GMM_U * torch.einsum(
+        "ecd,edf->ecf", x.float().abs(), w.float().abs())
+    big = torch.maximum(out.float().abs(), ref.float().abs())
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= bound + GMM_ROUND[str(x.dtype)[6:]] * big).all())
+    return err.max().item(), ok
+
+
+def phase_gmm_check(prefill_caps, ep_cap):
+    """The grouped-matmul kernel against its plain version at the serving
+    shapes of qwen3-moe-30b-a3b (decode C = 8, the prefills' capacities
+    ``prefill_caps``, the EP phase's ep * C = 8 * ``ep_cap``; gate/up
+    [2048 -> 768] and down [768 -> 2048]) and ragged ones, in bf16 and
+    f32; then timed at each serving capacity.  Returns {C: (kernel, plain,
+    bmm, operations bound, bytes bound)} ms summed over the three
+    projections of a layer, and the largest bf16 error at the serving
+    shapes."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    caps = sorted(set(GMM_CAPS) | set(prefill_caps))
+    shapes = [(MOE_E, c, d, f) for c in caps + [EP_RANKS * ep_cap]
+              for d, f in ((MOE_D, MOE_F), (MOE_F, MOE_D))]
+    launches0 = gm.launches
+    path_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for (e, c, d, f) in shapes + list(GMM_RAGGED):
+            x, w = _gmm_case(gen, e, c, d, f, dtype)
+            out = gm.moe_gmm(x, w)
+            torch.cuda.synchronize()
+            err, ok = _gmm_err(out, gm.moe_gmm_plain(x, w), x, w)
+            log(f"gmm check E={e} C={c} d={d} f={f} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} (bound 2 d u sum|x||w| + "
+                f"{GMM_ROUND[str(dtype)[6:]]} |out|) "
+                f"{'ok' if ok else 'FAIL'}")
+            require(ok, "grouped-matmul kernel disagrees with its plain "
+                    "version")
+            if dtype == torch.bfloat16 and e == MOE_E:
+                path_err = max(path_err, err)
+            del x, w, out
+    # rows do not depend on the launch: the EP launch's [E, ep*C, d] rows
+    # equal each rank's own [E, C, d] launch bit for bit
+    c = ep_cap
+    x, w = _gmm_case(gen, MOE_E, EP_RANKS * c, MOE_D, MOE_F, torch.bfloat16)
+    big = gm.moe_gmm(x, w)
+    require(all(torch.equal(big[:, c * r:c * (r + 1)], gm.moe_gmm(
+        x[:, c * r:c * (r + 1)].contiguous(), w))
+        for r in range(EP_RANKS)), "a row of the grouped matmul depends on "
+        "the other rows of its launch")
+    log(f"gmm check: each {c}-row slice of one [{MOE_E}, {EP_RANKS * c}, "
+        f"{MOE_D}] bf16 launch equals its own launch bit for bit")
+    del x, w, big
+
+    times = {}
+    for c in caps:
+        t = [0.0] * 5
+        for d, f, n in ((MOE_D, MOE_F, 2), (MOE_F, MOE_D, 1)):
+            x, w = _gmm_case(gen, MOE_E, c, d, f, torch.bfloat16)
+            row = (device_ms(lambda: gm.moe_gmm(x, w)),
+                   device_ms(lambda: gm.moe_gmm_plain(x, w)),
+                   device_ms(lambda: torch.bmm(x, w)),
+                   *gmm_bound_ms(MOE_E, c, d, f, "bfloat16"))
+            t = [a + n * b for a, b in zip(t, row)]
+            del x, w
+        times[c] = tuple(t)
+        k_ms, p_ms, l_ms, ops, nbytes = t
+        bound = max(ops, nbytes)
+        log(f"gmm device time, one MoE layer's 3 projections at C={c} "
+            f"bf16 (ms): kernel {k_ms:.5f} ({100 * bound / k_ms:.1f}% of "
+            f"bound), plain {p_ms:.5f}, torch.bmm {l_ms:.5f}, bound "
+            f"{bound:.6f} ({'operations' if ops >= nbytes else 'bytes'})")
+    log(f"gmm checks and timing launched the kernel "
+        f"{gm.launches - launches0} times (not counted below)")
+    return times, path_err
+
+
+def gmm_row(times, path_err, prefill_caps, ticks, launches):
+    """The grouped matmul's row of the kernels line: times per launch,
+    averaged over the serve phase's launches (each prefill's capacity,
+    and C = 8 for every decode tick)."""
+    calls = list(prefill_caps) + [8] * ticks
+    mean = lambda i: sum(times[c][i] for c in calls) / (3 * len(calls))
+    return {
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:19",
+        "launches": launches, "max_abs_err": path_err,
+        "ms": mean(0), "plain_ms": mean(1),
+        "bound_ms": max(mean(3), mean(4)),
+        "bound_by": "operations" if mean(3) >= mean(4) else "bytes",
+        "library_ms": mean(2),
+    }
+
+
 def _prompts(vocab):
     import numpy as np
     rng = np.random.default_rng(0)
@@ -488,14 +630,19 @@ def phase_profile(cfg, params, kernels, prompts):
               lambda: [eng.tick() for _ in range(4)])
 
 
-def expected_launches(cfg, prefills) -> dict:
-    """Each kernel's launches in a serve run: one per prefill and layer
-    of its kind (decode is plain PyTorch, as in the reference)."""
+def expected_launches(cfg, prefills, ticks=0) -> dict:
+    """Each kernel's launches in a serve run: flash and SSD once per
+    prefill and layer of their kind (decode attention and Mamba decode
+    are plain PyTorch, as in the reference); the grouped matmul once per
+    expert projection (3) of every MoE layer in every prefill and decode
+    tick."""
     plan = cfg.layer_plan()
     return {"flash_attention": prefills * sum(l.mixer == "attn"
                                               for l in plan),
             "ssd_scan": prefills * sum(l.mixer == "mamba" for l in plan),
-            "ring_allgather": 0}
+            "ring_allgather": 0,
+            "moe_gmm": 3 * (prefills + ticks) * sum(l.ffn == "moe"
+                                                    for l in plan)}
 
 
 def phase_serve(arch, prompts):
@@ -545,7 +692,7 @@ def phase_serve(arch, prompts):
     require(all(len(r.output) == SERVE_NEW for r in done),
             f"output lengths {[len(r.output) for r in done]}")
     require(eng.stats["prefills"] == len(prompts), f"stats {eng.stats}")
-    want = expected_launches(cfg, eng.stats["prefills"])
+    want = expected_launches(cfg, eng.stats["prefills"], eng.stats["ticks"])
     require(counts == want and any(counts.values()),
             f"launches {counts}, expected {want}, stats {eng.stats}")
     tasks = list(eng._executor.graph.tasks.values())
@@ -565,15 +712,17 @@ def phase_serve(arch, prompts):
         f"({len(dec)} ticks of {SERVE_SLOTS} slots); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
         f"stats {eng.stats}; executor {eng._executor.stats}; "
-        f"launches {counts} for {eng.stats['prefills']} prefills of "
-        f"{cfg.n_layers} layers; card {smi()}")
+        f"launches {counts} for {eng.stats['prefills']} prefills and "
+        f"{eng.stats['ticks']} decode ticks of {cfg.n_layers} layers; "
+        f"card {smi()}")
     phase_profile(cfg, params, kernels, prompts)
-    return counts, {r.rid: list(r.output) for r in done}
+    return counts, {r.rid: list(r.output) for r in done}, eng.stats
 
 
 def _greedy(cfg, params, prompt, n_new):
     """The engine's greedy tokens for ``prompt`` (and the launch counts
-    of that run), then token-by-token ``apply_model``'s."""
+    and decode ticks of that run), then token-by-token
+    ``apply_model``'s."""
     import torch
     from repro_torch.kernels import model_kernels
     from repro_torch.models import apply_model
@@ -587,30 +736,37 @@ def _greedy(cfg, params, prompt, n_new):
     eng.submit(Request(rid=0, prompt=prompt))
     out = eng.run_until_drained()[0].output
     counts = read_counts()
+    ticks = eng.stats["ticks"]
     toks = [int(t) for t in prompt]
     for _ in range(n_new):
         lg = apply_model(cfg, params,
                          torch.as_tensor(toks, device="cuda")[None],
                          kernels=kernels)
         toks.append(int(torch.argmax(lg[0, -1])))
-    return out, toks[len(prompt):], counts
+    return out, toks[len(prompt):], counts, ticks
 
 
-def phase_greedy(arch, prompts):
+def phase_greedy(arch, prompts, **overrides):
+    """``overrides`` cut the config (depth, capacity factor); each is
+    printed."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_model
 
     cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
-                              param_dtype=torch.float32)
+                              param_dtype=torch.float32, **overrides)
     log(f"greedy: dtype override {cfg.name} -> float32 (params and "
-        f"activations), allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        f"activations), allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+        f"; overrides {overrides}")
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         device="cuda")
     prompt = next(p for p in prompts if is_prime(len(p)))[:61]
-    out, ref, counts = _greedy(cfg, params, prompt, 16)
+    out, ref, counts, ticks = _greedy(cfg, params, prompt, 16)
+    want = expected_launches(cfg, 1, ticks)
     log(f"greedy: {cfg.name} prompt {len(prompt)} tokens; engine {out}; "
-        f"apply_model {ref}; engine launches {counts}")
+        f"apply_model {ref}; engine launches {counts} (expected {want}, "
+        f"{ticks} decode ticks)")
+    require(counts == want, f"greedy launches {counts}, expected {want}")
     require(out == ref, "engine diverged from token-by-token apply_model")
     log(f"greedy: {cfg.name} consistent")
 
@@ -642,8 +798,8 @@ def phase_hybrid(prompts):
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         device="cuda")
     prompt = next(p for p in prompts if is_prime(len(p)))[:61]
-    out, ref, counts = _greedy(cfg, params, prompt, 16)
-    want = expected_launches(cfg, 1)
+    out, ref, counts, ticks = _greedy(cfg, params, prompt, 16)
+    want = expected_launches(cfg, 1, ticks)
     log(f"hybrid: prompt {len(prompt)} tokens; engine {out}; apply_model "
         f"{ref}; engine launches {counts} (expected {want})")
     require(counts == want and want["flash_attention"] and want["ssd_scan"],
@@ -651,6 +807,134 @@ def phase_hybrid(prompts):
     require(out == ref, "hybrid engine diverged from token-by-token "
             "apply_model")
     log("hybrid: consistent")
+
+
+def phase_hybrid_moe(prompts):
+    """Jamba's layer plan (attention at offset 4 of a period of 8, experts
+    every second layer at offset 1, dense FFNs between) at mamba2-130m's
+    SSM widths, cut to 8 layers: d_model 768, 16 experts, top-2, expert
+    width 2048, capacity factor 8, float32.  A check of the layer plan,
+    not a published model: flash, SSD and the grouped matmul must all
+    launch, and the greedy check must hold."""
+    import torch
+    from repro_torch.configs.base import ModelConfig, get_config
+    from repro_torch.models import init_model
+
+    m = get_config("mamba2-130m")
+    j = get_config("jamba-1.5-large-398b")
+    cfg = ModelConfig(
+        name="hybrid-moe-check", family="hybrid", n_layers=8, d_model=768,
+        n_heads=12, n_kv_heads=4, d_ff=2048, vocab=m.vocab,
+        attn_layer_period=j.attn_layer_period,
+        attn_layer_offset=j.attn_layer_offset, n_experts=16,
+        n_experts_per_tok=j.n_experts_per_tok, moe_d_ff=2048,
+        expert_layer_period=j.expert_layer_period,
+        expert_layer_offset=j.expert_layer_offset, capacity_factor=8.0,
+        ssm_state=m.ssm_state, ssm_expand=m.ssm_expand,
+        ssm_head_dim=m.ssm_head_dim, ssm_groups=m.ssm_groups,
+        ssm_conv=m.ssm_conv, ssm_chunk=m.ssm_chunk, dtype=torch.float32,
+        param_dtype=torch.float32)
+    plan = " ".join(("a" if l.mixer == "attn" else "m")
+                    + ("E" if l.ffn == "moe" else "d")
+                    for l in cfg.layer_plan())
+    log(f"hybrid moe: a check of the layer plan, not a published model: "
+        f"{cfg.n_layers} layers ({plan}; a/m attention or Mamba, E/d "
+        f"experts or dense FFN), d_model {cfg.d_model}, {cfg.n_experts} "
+        f"experts top-{cfg.n_experts_per_tok} of width {cfg.moe_d_ff}, "
+        f"capacity factor {cfg.capacity_factor}, SSM state "
+        f"{cfg.ssm_state} x {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, "
+        f"float32")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    prompt = next(p for p in prompts if is_prime(len(p)))[:61]
+    out, ref, counts, ticks = _greedy(cfg, params, prompt, 16)
+    want = expected_launches(cfg, 1, ticks)
+    log(f"hybrid moe: prompt {len(prompt)} tokens; engine {out}; "
+        f"apply_model {ref}; engine launches {counts} (expected {want}, "
+        f"{ticks} decode ticks)")
+    require(counts == want and all(
+        want[k] for k in ("flash_attention", "ssd_scan", "moe_gmm")),
+        f"hybrid moe launches {counts}, expected {want}")
+    require(out == ref, "hybrid moe engine diverged from token-by-token "
+            "apply_model")
+    log("hybrid moe: consistent")
+
+
+class _RecordRuntimes:
+    """Record the LCX runtimes made inside the block (the expert-parallel
+    body makes a private one), to read their devices' stats."""
+
+    def __enter__(self):
+        import repro_torch.core as lcx
+        self.made, self._lcx, base = [], lcx, lcx.Runtime
+        made = self.made
+
+        class Recording(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        self._base, lcx.Runtime = base, Recording
+        return self
+
+    def __exit__(self, *exc):
+        self._lcx.Runtime = self._base
+
+
+def phase_ep():
+    """LCX expert-parallel dispatch of one qwen3-moe-30b-a3b MoE layer at
+    full width in bf16: 8 ranks of 512 tokens stacked on the card through
+    ``_moe_ep_shard`` with the native and the pairwise all-to-all; every
+    rank's output and aux bit-equal to ``_moe_sort_local`` on that rank's
+    tokens with the same kernel (both take the capacity of 512 tokens, so
+    they drop the same ones)."""
+    import torch
+    import repro_torch.core as lcx
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p = moe.moe_init(gen, cfg, torch.device("cuda"))
+    x = torch.randn((EP_RANKS, EP_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    C = moe.capacity(cfg, EP_TOKENS)
+    local = [moe._moe_sort_local(cfg, p, x[r], kernel_fn=ops.moe_gmm)
+             for r in range(EP_RANKS)]
+    ids = moe.route(cfg, p["router"], x[0])[0]
+    dropped = int((torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+                   - C).clamp_min(0).sum())
+    log(f"ep: {cfg.name} MoE layer ({cfg.n_experts} experts top-"
+        f"{cfg.n_experts_per_tok}, "
+        f"{3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff} expert params, "
+        f"{str(cfg.param_dtype)[6:]}), {EP_RANKS} ranks x {EP_TOKENS} tokens, "
+        f"capacity {C} a rank ({EP_RANKS * C} rows an expert after the "
+        f"all-to-all); rank 0 drops {dropped} of "
+        f"{ids.numel()} assignments")
+    for backend in ("native", "pairwise"):
+        with lcx.ranks.bind_axis("ep", EP_RANKS), _RecordRuntimes() as rec:
+            before = gm.launches
+            (y, aux), ms = _host_ms(lambda: moe._moe_ep_shard(
+                cfg, p, x, "ep", backend, kernel_fn=ops.moe_gmm))
+            launched = gm.launches - before
+        require(len(rec.made) == 1, f"{len(rec.made)} runtimes made")
+        stats = [d.stats["transfers"] for d in rec.made[0].devices()]
+        want = 2 * (EP_RANKS - 1) if backend == "pairwise" else 0
+        require(sum(stats) == want and launched == 3,
+                f"ep {backend}: transfers {stats} (expected {want}), gmm "
+                f"launches {launched}")
+        require(all(torch.equal(y[r], local[r][0])
+                    and torch.equal(aux[r], local[r][1])
+                    for r in range(EP_RANKS)),
+                f"ep {backend}: a rank differs from its sort-path MoE")
+        log(f"ep {backend}: host {ms:.3f} ms; Device.stats transfers "
+            f"{stats}; gmm launches {launched} (one per projection over "
+            f"[{cfg.n_experts}, {EP_RANKS * C}, d]); every rank's output "
+            f"and aux equal its sort-path MoE bit for bit")
+        del y, aux
+    del p, x, local
 
 
 def ring_bound_ms(n, shard_bytes) -> float:
@@ -828,7 +1112,7 @@ def phase_collectives():
             s, "x", axis_size=n) for s in shards])
         counts = read_counts()
         require(counts == {"flash_attention": 0, "ssd_scan": 0,
-                           "ring_allgather": cfg.n_layers},
+                           "ring_allgather": cfg.n_layers, "moe_gmm": 0},
                 f"FSDP gather launches {counts}")
         log(f"fsdp gather: {cfg.n_layers} layers x {QWEN_LAYER_PARAMS} bf16 "
             f"params over {n} ranks through ops.ring_all_gather: host "
@@ -1117,19 +1401,41 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     prompts = _prompts(get_config("qwen2-0.5b").vocab)
     m_prompts = _prompts(get_config("mamba2-130m").vocab)
+    moe_cfg = get_config("qwen3-moe-30b-a3b")
+    moe_prompts = _prompts(moe_cfg.vocab)
+    from repro_torch.models.moe import capacity
+    moe_caps = [capacity(moe_cfg, len(p)) for p in moe_prompts]
     flash = phase_kernel_check([len(p) for p in prompts])
     ssd = phase_ssd_check([len(p) for p in m_prompts])
     ring = phase_ring_check()
-    counts, qwen_tokens = phase_serve("qwen2-0.5b", prompts)
+    gmm_times, gmm_err = phase_gmm_check(moe_caps,
+                                         capacity(moe_cfg, EP_TOKENS))
+    counts, qwen_tokens, _ = phase_serve("qwen2-0.5b", prompts)
     flash["launches"] = counts["flash_attention"]
     release()
     ssd["launches"] = phase_serve("mamba2-130m", m_prompts)[0]["ssd_scan"]
+    release()
+    counts, _, stats = phase_serve("qwen3-moe-30b-a3b", moe_prompts)
+    gmm = gmm_row(gmm_times, gmm_err, moe_caps, stats["ticks"],
+                  counts["moe_gmm"])
     release()
     phase_greedy("qwen2-0.5b", prompts)
     release()
     phase_greedy("mamba2-130m", m_prompts)
     release()
+    # capacity factor E/k: C then covers every token, so decode (T = the
+    # slots) and the full-sequence apply_model (T = the length) drop none;
+    # at 1.25 they drop different tokens and legitimately differ
+    phase_greedy("qwen3-moe-30b-a3b", moe_prompts,
+                 n_layers=MOE_GREEDY_LAYERS,
+                 capacity_factor=moe_cfg.n_experts
+                 / moe_cfg.n_experts_per_tok)
+    release()
     phase_hybrid(m_prompts)
+    release()
+    phase_hybrid_moe(m_prompts)
+    release()
+    phase_ep()
     release()
     ring["launches"] = phase_collectives()
     release()
@@ -1139,7 +1445,7 @@ def main() -> int:
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, ssd, ring]}))
+    print(json.dumps({"kernels": [flash, ssd, ring, gmm]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ The port of ``repro/configs/base.py``: the same :class:`ModelConfig`
 fields and layer plan, with torch dtypes.  One ``<arch>.py`` per ported
 architecture instantiates it; :func:`get_config` resolves by id and each
 config also provides a ``smoke()`` reduction for CPU tests.  Ported so
-far: ``qwen2-0.5b`` and ``mamba2-130m``; the reference's other
-architectures come with their model families (see ROADMAP.md).
+far: ``qwen2-0.5b``, ``mamba2-130m``, ``qwen3-moe-30b-a3b`` and
+``jamba-1.5-large-398b``; the reference's other architectures come with
+their model families (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -160,7 +161,8 @@ class ModelConfig:
 _REGISTRY: Dict[str, Any] = {}
 
 # the reference's other architectures come with their model families
-PORTED = {"qwen2-0.5b", "mamba2-130m"}
+PORTED = {"qwen2-0.5b", "mamba2-130m", "qwen3-moe-30b-a3b",
+          "jamba-1.5-large-398b"}
 
 
 def register(name: str):

@@ -9,7 +9,11 @@
   layout, which the kernel reads as it is.  ``chunk`` is the TPU
   kernel's block size (``cfg.ssm_chunk``); the CUDA kernel keeps its own
   chunk of ``ssd_scan.CHUNK`` rows, which changes only the order of the
-  f32 sums.
+  f32 sums;
+- ``moe_gmm(xb, w)``: the expert FFN's products, xb [E,C,d] @ w [E,d,f]
+  -> [E,C,f].  The reference builds no such hook (its expert FFN runs
+  einsums, which compute the same function); the port's ``_expert_ffn``
+  runs the kernel when the hook is there and the einsums when not.
 
 ``ring_all_gather(x, axis, *, axis_size)`` is the ring kernel's own entry
 point, as in the reference: LCX's ``all_gather`` does not call it.
@@ -23,9 +27,10 @@ import torch
 from ..core import ranks
 from . import ring_allgather as _ring
 from .flash_attention import flash_attention
+from .moe_gmm import moe_gmm
 from .ssd_scan import ssd_scan
 
-__all__ = ["flash_attention", "ssd_scan", "ring_all_gather",
+__all__ = ["flash_attention", "ssd_scan", "moe_gmm", "ring_all_gather",
            "model_kernels"]
 
 
@@ -59,4 +64,5 @@ def model_kernels(cfg: Any) -> Dict[str, Callable[..., Any]]:
     def ssd_hook(x, dt, A, Bm, Cm, *, chunk):
         return ssd_scan(x, dt, A, Bm, Cm)
 
-    return {"flash_attention": attn_hook, "ssd_scan": ssd_hook}
+    return {"flash_attention": attn_hook, "ssd_scan": ssd_hook,
+            "moe_gmm": moe_gmm}

@@ -1,6 +1,5 @@
 """Plain-PyTorch oracles, one for each kernel of the port (the port of
-``repro/kernels/ref.py``; the grouped matmul's oracle comes with its
-slice)."""
+``repro/kernels/ref.py``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -49,6 +48,12 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            x[:, t].to(f32))
         ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, t].to(f32), hstate))
     return torch.stack(ys, dim=1).to(x.dtype), hstate
+
+
+def moe_gmm_ref(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped (expert-batched) matmul: [E,C,d] @ [E,d,f] -> [E,C,f],
+    summed in f32 and cast to xb's dtype."""
+    return torch.einsum("ecd,edf->ecf", xb.float(), w.float()).to(xb.dtype)
 
 
 def ring_allgather_ref(x: torch.Tensor) -> torch.Tensor:

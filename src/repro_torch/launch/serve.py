@@ -4,6 +4,8 @@
         --requests 16 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --full
 
 Runs on the CUDA card by default, with the port's kernels; ``--device
 cpu`` runs the smoke config's plain path on the CPU.  ``--full`` takes
@@ -26,8 +28,8 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--full", action="store_true",
-                   help="full config (one card holds qwen2-0.5b and "
-                   "mamba2-130m)")
+                   help="full config (one card holds qwen2-0.5b, "
+                   "mamba2-130m and qwen3-moe-30b-a3b)")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-seq", type=int, default=256)

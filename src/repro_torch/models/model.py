@@ -1,22 +1,23 @@
 """Model builder: embed -> (prefix layers + periodic stack) -> head.
 
-The port of ``repro/models/model.py`` for the dense, SSM and hybrid
-(attention + Mamba, no experts) paths.  Layer plans come from
-``ModelConfig.layer_plan()``.  The reference stacks the periodic body's
-params along a leading ``[n_periods]`` dim and runs it with
+The port of ``repro/models/model.py`` for the dense, SSM, MoE and hybrid
+(attention + Mamba, with or without experts) paths.  Layer plans come
+from ``ModelConfig.layer_plan()``.  The reference stacks the periodic
+body's params along a leading ``[n_periods]`` dim and runs it with
 ``lax.scan``; here ``params["stack"]`` is a list with one dict per
 period and a Python loop walks it.  The decode caches keep the
 reference's stacked layout, each layer with its own kind of cache:
 ``{k, v}`` for attention (``caches["stack"]["l0"]["k"]`` is
 ``[n_periods, B, Smax, Hkv, hd]``) and ``{conv, h}`` for Mamba
 (``[n_periods, B, k-1, conv_ch]`` and ``[n_periods, B, H, N, P]``).
-Each layer reads and writes its own slice in place.
+Each layer reads and writes its own slice in place.  An MoE layer's FFN
+is :func:`repro_torch.models.moe.moe_apply`, which runs the
+``"moe_gmm"`` kernel hook when ``kernels`` has it.
 
 Entry points: :func:`init_model`, :func:`apply_model` (full-sequence
 logits), and for serving :func:`init_cache` / :func:`prefill` /
-:func:`decode_step`.  MLA and MoE layers, the modality frontends and
-training come with later slices: asking for them raises
-``NotImplementedError``.
+:func:`decode_step`.  MLA layers, the modality frontends and training
+come with later slices: asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,11 +29,11 @@ from ..device import DeviceLike, resolve_device
 from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
 from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
                      norm, norm_init, swiglu)
+from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_cache_init, ssm_decode, ssm_init
 
 _LATER = {
     "mla": "ROADMAP.md, slice 5 (MLA)",
-    "moe": "ROADMAP.md, slice 4 (MoE)",
 }
 
 
@@ -84,7 +85,8 @@ def layer_init(gen: torch.Generator, cfg: Any, spec: Any,
     if spec.ffn is not None:
         p["norm2"] = norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                device)
-        p["ffn"] = ffn_init(gen, cfg, device)
+        p["ffn"] = (moe_init(gen, cfg, device) if spec.ffn == "moe"
+                    else ffn_init(gen, cfg, device))
     return p
 
 
@@ -93,10 +95,11 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
                 cache: Optional[PyTree] = None,
                 lengths: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None,
-                kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """One layer; in ``prefill`` and ``decode`` mode ``cache`` (this
-    layer's ``{k, v}`` [B,Smax,Hkv,hd] or ``{conv, h}``) is written in
-    place."""
+                kernels: Optional[Dict[str, Any]] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer -> (x, the MoE layer's aux loss or None).  In
+    ``prefill`` and ``decode`` mode ``cache`` (this layer's ``{k, v}``
+    [B,Smax,Hkv,hd] or ``{conv, h}``) is written in place."""
     impl = impl or getattr(cfg, "attn_impl", "chunked")
     kernels = kernels or {}
     h = norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -123,10 +126,16 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
             cache["k"][:, :s] = k.to(cache["k"].dtype)
             cache["v"][:, :s] = v.to(cache["v"].dtype)
     x = x + y
+    aux = None
     if spec.ffn is not None:
-        x = x + ffn_apply(cfg, p["ffn"],
-                          norm(cfg.norm, p["norm2"], x, cfg.norm_eps))
-    return x
+        h = norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+        if spec.ffn == "moe":
+            y, aux = moe_apply(cfg, p["ffn"], h,
+                               kernel_fn=kernels.get("moe_gmm"))
+        else:
+            y = ffn_apply(cfg, p["ffn"], h)
+        x = x + y
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -170,18 +179,23 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
                  lengths: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None,
                  kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Run the prefix and the periodic stack.  The layers' MoE aux losses
+    are dropped: every entry point here is inference (the training slice
+    sums them, as the reference's ``_stack_sweep`` does)."""
     prefix, period, _ = cfg.scan_plan()
     kw = dict(positions=positions, mode=mode, lengths=lengths, impl=impl,
               kernels=kernels)
     for i, spec in enumerate(prefix):
         c = None if caches is None else caches[f"prefix_{i}"]
-        x = layer_apply(cfg, spec, params[f"prefix_{i}"], x, cache=c, **kw)
+        x, _ = layer_apply(cfg, spec, params[f"prefix_{i}"], x, cache=c,
+                           **kw)
     for n, p_period in enumerate(params["stack"]):
         for j, spec in enumerate(period):
             c = None
             if caches is not None:
                 c = {key: t[n] for key, t in caches["stack"][f"l{j}"].items()}
-            x = layer_apply(cfg, spec, p_period[f"l{j}"], x, cache=c, **kw)
+            x, _ = layer_apply(cfg, spec, p_period[f"l{j}"], x, cache=c,
+                               **kw)
     return x
 
 
@@ -189,9 +203,11 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
 def apply_model(cfg: Any, params: PyTree, tokens: torch.Tensor, *,
                 impl: Optional[str] = None,
                 kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Full-sequence forward.  tokens [B, S] -> logits [B, S, V].  (The
-    reference also returns the MoE aux loss, which is 0 for the models
-    ported so far, none of which has experts.)"""
+    """Full-sequence forward.  tokens [B, S] -> logits [B, S, V].  The
+    reference returns ``(logits, aux)``; the MoE aux loss is a training
+    quantity, so it stays out of this inference entry point until the
+    training slice (the twins check it at ``moe_apply``, and
+    ``layer_apply`` returns it)."""
     x = embed(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)

@@ -1,0 +1,269 @@
+"""Mixture-of-Experts with expert-parallel dispatch over LCX.
+
+The port of ``repro/models/moe.py``.  Backends (``cfg.moe_backend``):
+
+- ``dense``: loop-over-experts masked reference (exact, O(E·T·d·f)
+  compute; the correctness oracle of the twins);
+- ``sort``: sort-based capacity dispatch on one device (stable sort by
+  expert id, position within the expert from the group starts, capacity
+  drop), the local building block of the expert-parallel path;
+- ``lcx``: expert parallelism over a mesh in the reference.  The port has
+  no mesh yet, and the reference with no active mesh takes the sort path,
+  so ``lcx`` does too here.  :func:`_moe_ep_shard`, the per-rank body of
+  the reference's expert-parallel path, runs on rank-stacked tokens and
+  dispatches them with LCX's ``all_to_all_x``; the mesh wrapper
+  (``_moe_ep``) and the resident-expert decode wait for ``parallel/``.
+
+Routers: ``softmax`` (standard top-k) and ``sigmoid`` (DeepSeek-V3 style
+with top-k normalisation).  The aux loss is the Switch load-balancing
+loss.  ``kernel_fn`` is the ``"moe_gmm"`` hook of ``kernels.ops``: with it
+the expert FFN's three products run the grouped-matmul kernel, without it
+the reference's einsums.
+
+Dispatch and combine keep fixed shapes and never wait for the device:
+sizes by ``scatter_add_``, the capacity drop as an extra last row of the
+buffer that is cut off, and combine's scatter-add as a gather of each
+token's k contributions and one sum over them, so the result does not
+depend on the order of atomic adds.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from .. import core as lcx
+from ..core import ranks
+from .common import PyTree, _normal, dense, dense_init, swiglu
+
+KernelFn = Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _expert_stack(gen: torch.Generator, E: int, d_in: int, d_out: int,
+                  dtype: torch.dtype, device: torch.device) -> PyTree:
+    return {"w": _normal(gen, (E, d_in, d_out), 1.0 / math.sqrt(d_in),
+                         dtype, device)}
+
+
+def moe_init(gen: torch.Generator, cfg: Any, device: torch.device) -> PyTree:
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    kw = dict(dtype=cfg.param_dtype, device=device)
+    p = {"router": dense_init(gen, d, E, dtype=torch.float32, device=device),
+         "w_gate": _expert_stack(gen, E, d, f, **kw),
+         "w_up": _expert_stack(gen, E, d, f, **kw),
+         "w_down": _expert_stack(gen, E, f, d, **kw)}
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.moe_d_ff
+        p["shared_gate"] = dense_init(gen, d, fs, **kw)
+        p["shared_up"] = dense_init(gen, d, fs, **kw)
+        p["shared_down"] = dense_init(gen, fs, d, **kw)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+def route(cfg: Any, router_p: PyTree, x: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [T, d] -> (ids [T, k] int64, weights [T, k] f32, aux loss [])."""
+    logits = x.float() @ router_p["w"].float()                # [T, E]
+    if cfg.router_type == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    w, ids = torch.topk(scores, cfg.n_experts_per_tok, dim=-1)
+    if cfg.router_norm_topk:
+        w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch load-balance aux: E * sum_e f_e * P_e
+    E = cfg.n_experts
+    probs = (scores if cfg.router_type != "sigmoid"
+             else torch.softmax(logits, dim=-1))
+    f = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
+        0, ids.reshape(-1), torch.ones(ids.numel(), dtype=torch.float32,
+                                       device=x.device))
+    f = f / max(ids.numel(), 1)
+    aux = E * torch.sum(f * probs.mean(0))
+    return ids, w, aux
+
+
+# ---------------------------------------------------------------------------
+# expert FFN on a capacity buffer  xb [E_loc, Cb, d]
+# ---------------------------------------------------------------------------
+def _expert_ffn(p: PyTree, xb: torch.Tensor, e_start: int, e_count: int,
+                kernel_fn: KernelFn = None) -> torch.Tensor:
+    wg, wu, wd = (p[k]["w"].narrow(0, e_start, e_count).to(xb.dtype)
+                  for k in ("w_gate", "w_up", "w_down"))
+    if kernel_fn is not None:
+        return kernel_fn(swiglu(kernel_fn(xb, wg), kernel_fn(xb, wu)), wd)
+    g = torch.einsum("ecd,edf->ecf", xb, wg)
+    u = torch.einsum("ecd,edf->ecf", xb, wu)
+    return torch.einsum("ecf,efd->ecd", swiglu(g, u), wd)
+
+
+# ---------------------------------------------------------------------------
+# sort-based capacity dispatch (local)
+# ---------------------------------------------------------------------------
+def capacity(cfg: Any, n_tokens: int) -> int:
+    c = math.ceil(n_tokens * cfg.n_experts_per_tok / cfg.n_experts
+                  * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)        # multiple of 8, as the reference
+
+
+def dispatch(x_flat: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
+             E: int, C: int) -> Tuple[torch.Tensor, PyTree]:
+    """x_flat [T, d]; ids/w [T, k] -> (buf [E, C, d], combine info).
+
+    Stable sort by expert id; position within the expert from the group
+    starts; tokens beyond capacity go to row E*C of an [E*C + 1, d]
+    buffer, which is cut off (the reference's scatter with
+    ``mode="drop"``)."""
+    T, k = ids.shape
+    d = x_flat.shape[-1]
+    flat_ids = ids.reshape(-1)                       # [T*k]
+    order = torch.argsort(flat_ids, stable=True)
+    ids_s = flat_ids[order]
+    tok_s = order // k
+    sizes = torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
+    starts = torch.cumsum(sizes, 0) - sizes
+    pos = torch.arange(T * k, device=ids.device) - starts[ids_s]
+    slot = torch.where(pos < C, ids_s * C + pos,
+                       torch.full_like(pos, E * C))  # E*C = drop bucket
+    buf = x_flat.new_zeros((E * C + 1, d))
+    buf[slot] = x_flat[tok_s]
+    info = {"slot": slot, "tok": tok_s,
+            "w": w.reshape(-1)[order].float(), "T": T}
+    return buf[:E * C].reshape(E, C, d), info
+
+
+def combine(yb: torch.Tensor, info: PyTree, d: int) -> torch.Tensor:
+    """yb [E, C, d] -> y [T, d]: each token's k weighted rows gathered
+    (in ascending expert id) and summed by one reduction over k."""
+    yb_flat = yb.reshape(-1, d)
+    n = yb_flat.shape[0]
+    slot = info["slot"]
+    T = info["T"]
+    gathered = yb_flat[slot.clamp(max=n - 1)]
+    gathered = torch.where((slot < n)[:, None], gathered,
+                           torch.zeros((), dtype=yb.dtype, device=yb.device))
+    contrib = gathered * info["w"][:, None].to(yb.dtype)   # [T*k, d]
+    # the rows of each token, in sorted-list order
+    rows = torch.argsort(info["tok"], stable=True).reshape(T, -1)
+    return contrib[rows].sum(1)
+
+
+# ---------------------------------------------------------------------------
+# backends
+# ---------------------------------------------------------------------------
+def _moe_dense(cfg: Any, p: PyTree, x_flat: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked loop-over-experts reference (the einsums, no kernel)."""
+    ids, w, aux = route(cfg, p["router"], x_flat)
+    y = torch.zeros_like(x_flat)
+    for e in range(cfg.n_experts):
+        gate = ((ids == e).float() * w).sum(-1).to(x_flat.dtype)  # [T]
+        he = _expert_ffn(p, x_flat[None], e, 1)[0]
+        y = y + he * gate[:, None]
+    return y, aux
+
+
+def _moe_sort_local(cfg: Any, p: PyTree, x_flat: torch.Tensor,
+                    stream_chunks: int = 0, kernel_fn: KernelFn = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ids, w, aux = route(cfg, p["router"], x_flat)
+    C = capacity(cfg, x_flat.shape[0])
+    buf, info = dispatch(x_flat, ids, w, cfg.n_experts, C)
+    if stream_chunks > 1 and cfg.n_experts % stream_chunks == 0:
+        # the reference's weight-streamed decode: the expert FFN over
+        # E / stream_chunks experts at a time (a lax.scan there)
+        ck = cfg.n_experts // stream_chunks
+        yb = torch.cat([_expert_ffn(p, buf[i * ck:(i + 1) * ck], i * ck, ck,
+                                    kernel_fn)
+                        for i in range(stream_chunks)])
+    else:
+        yb = _expert_ffn(p, buf, 0, cfg.n_experts, kernel_fn)
+    return combine(yb, info, x_flat.shape[-1]), aux
+
+
+def _moe_ep_shard(cfg: Any, p: PyTree, x: torch.Tensor, ep_axis: str,
+                  a2a_backend: str, kernel_fn: KernelFn = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's per-rank body of expert parallelism, on rank-stacked
+    tokens: ``x [ep, T_loc, d]`` (rank r's tokens are ``x[r]``) under
+    ``ranks.bind_axis(ep_axis, ep)``.  Returns (y [ep, T_loc, d], aux
+    [ep]), each rank's as the reference's ``_moe_ep_shard`` gives it.
+
+    Rank r owns experts ``r*E_loc .. (r+1)*E_loc - 1``: the full stacks
+    ``[E, ...]`` viewed as ``[ep, E_loc, ...]``.  Each rank routes and
+    dispatches its own tokens; an LCX all-to-all on a private runtime
+    sends every capacity row to its expert's rank; the expert FFN of all
+    ranks, ``[ep, E_loc, ep*C, d]``, is one product over ``[E, ep*C, d]``
+    (one kernel launch per projection); a second all-to-all brings the
+    rows back and each rank combines its own."""
+    ep = ranks.axis_size(ep_axis)
+    if x.dim() != 3 or x.shape[0] != ep:
+        raise ValueError(f"rank-stacked x has shape {tuple(x.shape)}, axis "
+                         f"{ep_axis!r} has {ep} ranks")
+    E = cfg.n_experts
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over {ep} ranks")
+    E_loc = E // ep
+    d = x.shape[-1]
+    C = capacity(cfg, x.shape[1])
+    bufs, infos, auxes = [], [], []
+    for r in range(ep):
+        ids, w, aux = route(cfg, p["router"], x[r])
+        buf, info = dispatch(x[r], ids, w, E, C)          # [E, C, d]
+        bufs.append(buf.reshape(E * C, d))
+        infos.append(info)
+        auxes.append(aux)
+
+    # Private runtime + isolated device per a2a region: the MoE layer's
+    # traffic never touches (or requires) the global default runtime.
+    rt = lcx.Runtime(name="moe-ep")
+    dev = rt.device(axis=ep_axis)
+    a2a = lcx.all_to_all_x(torch.stack(bufs)).device(dev) \
+        .backend(a2a_backend)()
+    # rank r's rows grouped by source rank: [ep, ep, E_loc, C, d] ->
+    # [ep, E_loc, ep*C, d], i.e. [E, ep*C, d] in global expert order
+    xb = a2a.reshape(ep, ep, E_loc, C, d).transpose(1, 2) \
+        .reshape(E, ep * C, d)
+    yb = _expert_ffn(p, xb, 0, E, kernel_fn)
+    back = yb.reshape(ep, E_loc, ep, C, d).transpose(1, 2) \
+        .reshape(ep, E * C, d)
+    y_all = lcx.all_to_all_x(back).device(dev).backend(a2a_backend)()
+    y = torch.stack([combine(y_all[r].reshape(E, C, d), infos[r], d)
+                     for r in range(ep)])
+    return y, torch.stack(auxes)
+
+
+def moe_apply(cfg: Any, p: PyTree, x: torch.Tensor,
+              kernel_fn: KernelFn = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], aux loss scalar).  With no mesh, as
+    the reference without an active one: ``dense`` stays dense (the
+    oracle, which runs no kernel), every other backend (``lcx`` included)
+    takes the sort path."""
+    b, s, d = x.shape
+    x_flat = x.reshape(-1, d)
+    if cfg.moe_backend == "dense":
+        y, aux = _moe_dense(cfg, p, x_flat)
+    else:
+        y, aux = _moe_sort_local(cfg, p, x_flat, kernel_fn=kernel_fn)
+    y = y.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        g = dense(p["shared_gate"], x)
+        u = dense(p["shared_up"], x)
+        y = y + dense(p["shared_down"], swiglu(g, u))
+    return y, aux
+
+
+def cfg_a2a_backend(cfg: Any) -> str:
+    """LCX a2a lowering: 'native' (one permutation of the rank dim) or
+    'pairwise' (n - 1 LCX puts).  Tunable per config."""
+    return getattr(cfg, "moe_a2a", "native")
+

@@ -88,6 +88,37 @@ def test_init_model_without_device_raises(no_cuda):
         init_cache(smoke(), 1, 8)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_entry_points_without_device_raise(no_cuda, arch):
+    """The MoE slice's configs: init_model, init_cache and
+    ``launch/serve.py`` default to the card."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import init_cache, init_model
+    cfg = get_smoke_config(arch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", arch], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_moe_serve_cli_runs_on_cpu_when_asked():
+    """``launch/serve.py --arch qwen3-moe-30b-a3b --device cpu`` serves
+    the smoke config through the MoE path."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", "qwen3-moe-30b-a3b", "--device", "cpu",
+                        "--requests", "3", "--max-new", "4"], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "served 3 requests, 12 tokens" in r.stdout
+
+
 def test_params_from_jax_without_device_raises(no_cuda):
     import jax
     from repro.configs.qwen2_0_5b import smoke as jsmoke

@@ -1,6 +1,7 @@
 """The port's kernel wrappers (plain versions on CPU tensors) against
 the Pallas kernels in interpret mode, on the same numpy inputs: flash
-attention, the SSD chunked scan and the ring all-gather.
+attention, the SSD chunked scan, the ring all-gather and the MoE grouped
+matmul.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py``
 holds them against their plain versions there."""
@@ -20,11 +21,13 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as flash_pallas  # noqa: E402
+from repro.kernels.moe_gmm import moe_gmm as gmm_pallas  # noqa: E402
 from repro.configs.base import ModelConfig as JConfig  # noqa: E402
 
 from repro_torch.configs.base import ModelConfig as TConfig  # noqa: E402
 from repro_torch.core import ranks  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ring_allgather as tring  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -344,3 +347,67 @@ def test_ring_all_gather_op_checks_the_axis():
         tops.ring_all_gather(x, "x", axis_size=4)
     with pytest.raises(NameError):
         tops.ring_all_gather(x, "y", axis_size=4)
+
+
+# tests/test_kernels.py's cases, plus ragged ones (C, d, f not multiples
+# of anything: the Pallas wrapper halves its blocks to divisors, the CUDA
+# kernel masks the edges)
+GMM_CASES = [
+    # (e, c, d, f, dtype)
+    (4, 64, 96, 80, "float32"),
+    (2, 128, 64, 64, "float32"),
+    (8, 32, 48, 32, "bfloat16"),
+    (1, 256, 128, 256, "float32"),
+    (4, 24, 80, 96, "bfloat16"),
+    (3, 5, 100, 7, "float32"),
+]
+GMM_TOL = {"float32": 1e-4, "bfloat16": 1e-1}  # as tests/test_kernels.py
+
+
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_plain_moe_gmm_matches_pallas_interpret(case):
+    """The plain version, the CPU wrapper, the oracle and the model hook
+    against ``_gmm_kernel`` in interpret mode (32-wide blocks, as
+    tests/test_kernels.py runs it)."""
+    e, c, d, f, dtype = case
+    rng = np.random.default_rng(e * c + d)
+    xb = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = rng.standard_normal((e, d, f)).astype(np.float32)
+    jx, jw = jnp.asarray(xb, dtype), jnp.asarray(w, dtype)
+    tx = torch.from_numpy(xb).to(getattr(torch, dtype))
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    want = np.asarray(gmm_pallas(jx, jw, block_c=32, block_f=32, block_d=32,
+                                 interpret=True), np.float32)
+    before = tgmm.launches
+    hook = tops.model_kernels(None)["moe_gmm"]
+    for got in (tgmm.moe_gmm_plain(tx, tw), tgmm.moe_gmm(tx, tw),
+                tref.moe_gmm_ref(tx, tw), hook(tx, tw)):
+        assert got.dtype == tx.dtype and tuple(got.shape) == (e, c, f)
+        np.testing.assert_allclose(_np(got), want, atol=GMM_TOL[dtype],
+                                   rtol=1e-2)
+    assert tgmm.launches == before
+
+
+def test_gmm_wrapper_never_falls_back_for_other_devices():
+    """Only CPU tensors take the plain version: a tensor on any other
+    device goes to the kernel or raises."""
+    x = torch.zeros((2, 8, 16), device="meta")
+    w = torch.zeros((2, 16, 4), device="meta")
+    with pytest.raises(ValueError, match="no grouped-matmul kernel"):
+        tgmm.moe_gmm(x, w)
+    assert tgmm.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["rank", "experts", "depth", "dtype",
+                                 "mixed"])
+def test_gmm_wrapper_checks_inputs(bad):
+    x = torch.zeros((2, 8, 16))
+    w = torch.zeros((2, 16, 4))
+    args, err = {
+        "rank": ((x[0], w), ValueError),
+        "experts": ((x, w[:1]), ValueError),
+        "depth": ((x[:, :, :8], w), ValueError),
+        "dtype": ((x.half(), w.half()), TypeError),
+        "mixed": ((x, w.bfloat16()), TypeError)}[bad]
+    with pytest.raises(err):
+        tgmm.moe_gmm(*args)

@@ -171,10 +171,11 @@ def test_init_model_layout_and_distributions():
 
 @pytest.mark.parametrize("kind", ["hybrid_moe", "moe", "mla"])
 def test_unported_layers_raise(kind):
+    """MLA layers are not ported yet and raise.  MoE layers, alone
+    (``moe``) or in Jamba's plan (``hybrid_moe``: mamba and attention
+    layers, experts every second layer), are ported and build."""
     kw = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
               vocab=64, dtype=torch.float32, param_dtype=torch.float32)
-    # hybrid_moe: Jamba's plan (mamba and attention layers, experts every
-    # second layer), which waits for the MoE slice
     extra = {"hybrid_moe": dict(family="hybrid", ssm_state=16,
                                 attn_layer_period=8, attn_layer_offset=4,
                                 n_experts=4, n_experts_per_tok=2,
@@ -184,10 +185,18 @@ def test_unported_layers_raise(kind):
                          moe_d_ff=32),
              "mla": dict(q_lora_rank=16, kv_lora_rank=16)}[kind]
     cfg = TConfig(**kw, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, device="cpu")
+    if kind == "mla":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_model(torch.Generator(), cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_cache(cfg, 1, 8, device="cpu")
+        return
+    params = init_model(torch.Generator(), cfg, device="cpu")
+    init_cache(cfg, 1, 8, device="cpu")
+    prefix, period, n_periods = cfg.scan_plan()
+    moe = [f"l{j}" for j, spec in enumerate(period) if spec.ffn == "moe"]
+    assert moe and all(set(params["stack"][0][name]["ffn"]) == {
+        "router", "w_gate", "w_up", "w_down"} for name in moe)
 
 
 VARIANTS = {
@@ -211,5 +220,111 @@ def test_config_variants_logits(name, s):
     jp, _ = jinit(jax.random.PRNGKey(2), jcfg)
     tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     toks = _tokens(s + 1, 2, s, jcfg.vocab)
+    want, _ = japply(jcfg, jp, jnp.asarray(toks))
+    _close(apply_model(tcfg, tp, _t(toks)), want)
+
+
+# ---------------------------------------------------------------------------
+# MoE: qwen3-moe-30b-a3b's and jamba-1.5-large-398b's smoke configs
+# ---------------------------------------------------------------------------
+from repro.configs.jamba_1_5_large_398b import smoke as jjamba  # noqa: E402
+from repro.configs.qwen3_moe_30b_a3b import smoke as jqwen3  # noqa: E402
+from repro_torch.configs.jamba_1_5_large_398b import smoke as tjamba  # noqa: E402
+from repro_torch.configs.qwen3_moe_30b_a3b import smoke as tqwen3  # noqa: E402
+
+MOE_SMOKES = {"qwen3-moe": (jqwen3, tqwen3), "jamba": (jjamba, tjamba)}
+
+
+@pytest.fixture(scope="module", params=sorted(MOE_SMOKES))
+def moe_setup(request):
+    """The reference's params for the smoke config (its init compiled as
+    one program), carried over; the reference's entry points jitted."""
+    jcfg, tcfg = (f() for f in MOE_SMOKES[request.param])
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(3))
+    tree = jax.tree.map(np.asarray, jp)
+    fns = {"apply": jax.jit(lambda p, t: japply(jcfg, p, t)),
+           "prefill": jax.jit(lambda p, t, c: jprefill(jcfg, p, t, c)),
+           "decode": jax.jit(lambda p, t, c, n: jdecode(jcfg, p, t, c, n))}
+    return jcfg, tcfg, jp, tree, params_from_jax(tcfg, tree, device="cpu"), \
+        fns
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_moe_apply_model_logits(moe_setup, kernels):
+    """Full-sequence logits with and without the port's kernel hooks
+    (flash, SSD scan and the grouped matmul: plain versions on the
+    CPU)."""
+    jcfg, tcfg, jp, _, tp, fns = moe_setup
+    toks = _tokens(31, 2, 24, jcfg.vocab)
+    want, aux = fns["apply"](jp, jnp.asarray(toks))
+    assert float(aux) > 0
+    got = apply_model(tcfg, tp, _t(toks),
+                      kernels=model_kernels(tcfg) if kernels else None)
+    _close(got, want)
+
+
+def test_moe_prefill_and_decode_caches(moe_setup):
+    """Prefill then three decode steps: logits and every cache leaf (KV
+    rows of attention layers, conv and SSM state of Mamba layers)."""
+    jcfg, tcfg, jp, _, tp, fns = moe_setup
+    b, s, smax = 2, 19, 40
+    toks = _tokens(32, b, s, jcfg.vocab)
+    jc = jinit_cache(jcfg, b, smax)
+    tc = init_cache(tcfg, b, smax, device="cpu")
+    kern = model_kernels(tcfg)
+
+    def same_caches():
+        for name, sub in jc["stack"].items():
+            for key, leaf in sub.items():
+                _close(tc["stack"][name][key], leaf)
+
+    jl, jc = fns["prefill"](jp, jnp.asarray(toks), jc)
+    tl, tc = prefill(tcfg, tp, _t(toks), tc, kernels=kern)
+    _close(tl, jl)
+    same_caches()
+    for i in range(3):
+        nt = _tokens(200 + i, b, 1, jcfg.vocab)
+        jl, jc = fns["decode"](jp, jnp.asarray(nt), jc, jnp.int32(s + i))
+        tl, tc = decode_step(tcfg, tp, _t(nt), tc, s + i, kernels=kern)
+        _close(tl, jl)
+        same_caches()
+
+
+def test_converter_carries_moe_leaves(moe_setup):
+    """``params_from_jax`` carries the router (f32 ``{"w"}``) and the
+    expert stacks (``[n_periods, E, d, f]`` in the reference's
+    ``"stack"``, one ``[E, d, f]`` per period here) leaf for leaf."""
+    jcfg, tcfg, _, tree, tp, _ = moe_setup
+    _, period, n_periods = tcfg.scan_plan()
+    moe = [f"l{j}" for j, spec in enumerate(period) if spec.ffn == "moe"]
+    assert moe
+    E, d, f = jcfg.n_experts, jcfg.d_model, jcfg.moe_d_ff
+    for name in moe:
+        jffn = tree["stack"][name]["ffn"]
+        assert jffn["w_gate"]["w"].shape == (n_periods, E, d, f)
+        for n in range(n_periods):
+            tffn = tp["stack"][n][name]["ffn"]
+            assert set(tffn) == set(jffn)
+            assert tffn["router"]["w"].dtype == torch.float32
+            for key, sub in jffn.items():
+                np.testing.assert_array_equal(tffn[key]["w"].numpy(),
+                                              sub["w"][n])
+
+
+def test_converter_carries_shared_experts():
+    kw = dict(name="sh", family="moe", n_layers=2, d_model=32, n_heads=4,
+              n_kv_heads=2, d_ff=64, vocab=50, n_experts=4,
+              n_experts_per_tok=2, moe_d_ff=16, n_shared_experts=2)
+    from repro.configs.base import ModelConfig as JConfig
+    jcfg = JConfig(dtype=jnp.float32, param_dtype=jnp.float32, **kw)
+    tcfg = TConfig(dtype=torch.float32, param_dtype=torch.float32, **kw)
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(4))
+    tree = jax.tree.map(np.asarray, jp)
+    tp = params_from_jax(tcfg, tree, device="cpu")
+    for key in ("shared_gate", "shared_up", "shared_down"):
+        np.testing.assert_array_equal(
+            tp["stack"][1]["l0"]["ffn"][key]["w"].numpy(),
+            tree["stack"]["l0"]["ffn"][key]["w"][1])
+    toks = _tokens(33, 2, 12, jcfg.vocab)
     want, _ = japply(jcfg, jp, jnp.asarray(toks))
     _close(apply_model(tcfg, tp, _t(toks)), want)

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX package's, on the same
 params and requests: greedy token lists and ``stats`` identical, and the
 cases of tests/test_serving.py held against both engines, on a dense
-model, mamba2-130m's smoke config and a hybrid (attention + Mamba)."""
+model, mamba2-130m's smoke config, a hybrid (attention + Mamba) and the
+MoE smoke configs of qwen3-moe-30b-a3b and jamba-1.5-large-398b."""
 import numpy as np
 import pytest
 
@@ -256,3 +257,49 @@ def test_ssm_greedy_matches_full_forward(ssm_setup):
         lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])
         toks.append(int(torch.argmax(lg[0, -1])))
     assert toks[len(r.prompt):] == r.output
+
+
+# ---------------------------------------------------------------------------
+# MoE serving.  The reference vmaps decode over the slots, so each slot's
+# token is routed alone (T = 1, capacity 8); the port decodes all slots in
+# one batch (T = n_slots, capacity(n_slots) >= 8).  With n_slots <= 8 no
+# expert can be sent more tokens than its capacity on either side, so the
+# two agree (ROADMAP.md, section 4).
+# ---------------------------------------------------------------------------
+from repro.configs.jamba_1_5_large_398b import smoke as jjamba  # noqa: E402
+from repro.configs.qwen3_moe_30b_a3b import smoke as jqwen3  # noqa: E402
+from repro_torch.configs.jamba_1_5_large_398b import smoke as tjamba  # noqa: E402
+from repro_torch.configs.qwen3_moe_30b_a3b import smoke as tqwen3  # noqa: E402
+
+MOE_SERVE = dict(n_slots=3, max_seq=32, max_new_tokens=5)
+
+
+@pytest.fixture(scope="module", params=["qwen3-moe", "jamba"])
+def moe_setup(request):
+    jcfg, tcfg = {"qwen3-moe": (jqwen3, tqwen3),
+                  "jamba": (jjamba, tjamba)}[request.param]
+    jcfg, tcfg = jcfg(), tcfg()
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(5))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, jcfg.vocab, n).astype(np.int32)
+               for n in (7, 12, 7, 12, 7)]
+    je = JEngine(jcfg, jp, JServe(**MOE_SERVE))
+    for i, p in enumerate(prompts):
+        je.submit(JRequest(rid=i, prompt=p))
+    return tcfg, tp, prompts, je.run_until_drained(), je.stats
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_moe_engine_matches_reference(moe_setup, kernels):
+    """Five requests on three slots: the port's engine gives the reference
+    engine's greedy tokens and stats, with the port's kernels (the
+    grouped matmul's plain version on the CPU) or without."""
+    tcfg, tp, prompts, jd, jstats = moe_setup
+    te = TEngine(tcfg, tp, TServe(**MOE_SERVE), device="cpu",
+                 kernels=model_kernels(tcfg) if kernels else None)
+    for i, p in enumerate(prompts):
+        te.submit(TRequest(rid=i, prompt=p))
+    _same(jd, te.run_until_drained())
+    assert te.stats == jstats
+    assert te.stats["prefills"] == len(prompts) and not te.failed
