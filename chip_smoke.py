@@ -11,8 +11,10 @@ non-zero:
 2. build: every CUDA source of the port, one ``nvcc`` each, in parallel;
 3. kernel checks: each kernel (flash attention, SSD scan, the MoE
    grouped matmul) against its plain PyTorch version on the card, at the
-   serving shapes and a few others, then timed beside its plain version
-   and, where one exists, one PyTorch library call;
+   serving shapes and a few others (flash also at qwen3-moe-30b-a3b's
+   attention shape and on the strided seq-major views the model's hook
+   passes), then timed beside its plain version and, where one exists,
+   one PyTorch library call;
 4. serve, one path after another: ``qwen2-0.5b``, ``mamba2-130m`` and
    ``qwen3-moe-30b-a3b`` (48 layers, ~30.5 B parameters), each at full
    width in bf16 (random weights from seed 0, drawn on the card), answer
@@ -265,15 +267,49 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def _qkv(gen, b, hq, hkv, sq, sk, dk, dv, dtype):
+def _qkv(gen, b, hq, hkv, sq, sk, dk, dv, dtype, seq_major=False):
+    """q, k, v as [B, H, S, D]; with ``seq_major`` the transposed views of
+    [B, S, H, D] tensors, as the model's attention hook passes them."""
     import torch
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    if seq_major:
+        return tuple(mk(b, s, h, d).transpose(1, 2) for s, h, d in
+                     ((sq, hq, dk), (sk, hkv, dk), (sk, hkv, dv)))
     return mk(b, hq, sq, dk), mk(b, hkv, sk, dk), mk(b, hkv, sk, dv)
 
 
-def phase_kernel_check(serve_lens):
+def _flash_times(gen, hq, hkv, d, lens):
+    """Mean device ms per call over ``lens`` (causal, B = 1, bf16): kernel,
+    plain version, SDPA, the bound, and the kernel with host launch gaps;
+    and what bounds it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    for s in lens:
+        q, k, v = _qkv(gen, 1, hq, hkv, s, s, d, d, torch.bfloat16)
+        launch = lambda: fa.flash_attention(q, k, v, causal=True)
+        rows.append((
+            device_ms(launch),
+            device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+            device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+            flash_bound_ms(hq, hkv, s, s, d, True, "bfloat16"),
+            cuda_ms(launch)))
+    n = len(rows)
+    t_ops = sum(r[3][0] for r in rows)
+    t_bytes = sum(r[3][1] for r in rows)
+    return (sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n,
+            sum(r[2] for r in rows) / n, sum(max(r[3]) for r in rows) / n,
+            sum(r[4] for r in rows) / n,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel_check(serve_lens, moe_lens):
     """Returns the flash kernel's row of the kernels line (without the
-    launch count, which comes from the serve phase)."""
+    launch count, which comes from the serve phase): qwen2-0.5b's shape
+    over its serve prompt lengths.  Also checks and times the kernel at
+    qwen3-moe-30b-a3b's attention shape over ``moe_lens``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -283,14 +319,25 @@ def phase_kernel_check(serve_lens):
     cases = [(1, 14, 2, s, s, 64, 64, True, bf16) for s in CHECK_SEQS]
     cases += [(1, 14, 2, s, s, 64, 64, True, bf16)
               for s in sorted(set(serve_lens))]
+    cases += [(1, 32, 4, s, s, 128, 128, True, bf16)
+              for s in sorted(set(moe_lens))]
     cases += [(2, 4, 2, 64, 192, 32, 32, False, bf16),
+              (1, 4, 2, 33, 77, 24, 40, False, bf16),
+              (1, 4, 2, 77, 33, 24, 40, True, bf16),
               (1, 4, 2, 33, 77, 24, 40, False, f32),
               (1, 14, 2, 100, 100, 64, 64, True, f32),
               (2, 8, 8, 256, 256, 128, 128, True, f32)]
+    # the model's layout: transposed views of [B, S, H, D] tensors
+    strided = [(1, 14, 2, s, s, 64, 64, True, bf16) for s in (7, 100, 512)]
+    strided += [(1, 32, 4, s, s, 128, 128, True, bf16) for s in (61, 441)]
+    strided += [(1, 14, 2, 100, 100, 64, 64, True, f32),
+                (1, 32, 4, 61, 61, 128, 128, True, f32)]
     launches0 = fa.launches
     path_err = 0.0
-    for (b, hq, hkv, sq, sk, dk, dv, causal, dt) in cases:
-        q, k, v = _qkv(gen, b, hq, hkv, sq, sk, dk, dv, dt)
+    for case, seq_major in ([(c, False) for c in cases]
+                            + [(c, True) for c in strided]):
+        (b, hq, hkv, sq, sk, dk, dv, causal, dt) = case
+        q, k, v = _qkv(gen, b, hq, hkv, sq, sk, dk, dv, dt, seq_major)
         out = fa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -298,45 +345,39 @@ def phase_kernel_check(serve_lens):
         atol, rtol = TOL[str(dt).split(".")[1]]
         ok = bool((err <= atol + rtol * ref.float().abs()).all())
         log(f"flash check B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} "
-            f"Dk={dk} Dv={dv} causal={causal} {str(dt)[6:]}: "
+            f"Dk={dk} Dv={dv} causal={causal} {str(dt)[6:]}"
+            f"{' strided (seq-major views)' if seq_major else ''}: "
             f"max_abs_err={err.max().item():.3e} (atol {atol}, rtol {rtol})"
             f" {'ok' if ok else 'FAIL'}")
         require(ok, "flash kernel disagrees with its plain version")
-        if dt == bf16 and (b, hq, hkv, dk) == (1, 14, 2, 64):
+        if dt == bf16 and (b, hq, hkv, dk) == (1, 14, 2, 64) \
+                and not seq_major:
             path_err = max(path_err, err.max().item())
 
     # device time at the shapes the serve phase gives the kernel: one
     # (B=1, Hq=14, Hkv=2, S, D=64) causal bf16 call per prompt length
-    rows, host = [], []
-    for s in serve_lens:
-        q, k, v = _qkv(gen, 1, 14, 2, s, s, 64, 64, bf16)
-        launch = lambda: fa.flash_attention(q, k, v, causal=True)
-        rows.append((
-            device_ms(launch),
-            device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
-            device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)),
-            flash_bound_ms(14, 2, s, s, 64, True, "bfloat16")))
-        host.append(cuda_ms(launch))
-    n = len(rows)
-    t_ops = sum(r[3][0] for r in rows)
-    t_bytes = sum(r[3][1] for r in rows)
+    k_ms, p_ms, l_ms, b_ms, host, bound_by = _flash_times(
+        gen, 14, 2, 64, serve_lens)
+    n = len(serve_lens)
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": None, "max_abs_err": path_err,
-        "ms": sum(r[0] for r in rows) / n,
-        "plain_ms": sum(r[1] for r in rows) / n,
-        "bound_ms": sum(max(r[3]) for r in rows) / n,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": sum(r[2] for r in rows) / n,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": bound_by, "library_ms": l_ms,
     }
     log(f"flash device time over the {n} serve prompt lengths (mean per "
-        f"call, ms): kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
-        f"sdpa {row['library_ms']:.5f}, bound {row['bound_ms']:.6f} "
-        f"({row['bound_by']}); kernel with host launch gaps (CUDA events) "
-        f"{sum(host) / n:.5f}")
+        f"call, ms): kernel {k_ms:.5f}, plain {p_ms:.5f}, sdpa {l_ms:.5f}, "
+        f"bound {b_ms:.6f} ({bound_by}); kernel with host launch gaps "
+        f"(CUDA events) {host:.5f}")
+    k_ms, p_ms, l_ms, b_ms, host, bound_by = _flash_times(
+        gen, 32, 4, 128, moe_lens)
+    log(f"flash device time at qwen3-moe-30b-a3b's attention shape (Hq=32, "
+        f"Hkv=4, D=128) over the {len(moe_lens)} serve prompt lengths (mean "
+        f"per call, ms): kernel {k_ms:.5f}, plain {p_ms:.5f}, sdpa "
+        f"{l_ms:.5f}, bound {b_ms:.6f} ({bound_by}); kernel with host "
+        f"launch gaps (CUDA events) {host:.5f}")
     q, k, v = _qkv(gen, 1, 14, 2, 1024, 1024, 64, 64, bf16)
     k_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
     l_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -1405,7 +1446,8 @@ def main() -> int:
     moe_prompts = _prompts(moe_cfg.vocab)
     from repro_torch.models.moe import capacity
     moe_caps = [capacity(moe_cfg, len(p)) for p in moe_prompts]
-    flash = phase_kernel_check([len(p) for p in prompts])
+    flash = phase_kernel_check([len(p) for p in prompts],
+                               [len(p) for p in moe_prompts])
     ssd = phase_ssd_check([len(p) for p in m_prompts])
     ring = phase_ring_check()
     gmm_times, gmm_err = phase_gmm_check(moe_caps,

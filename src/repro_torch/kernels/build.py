@@ -1,8 +1,8 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-source builds anew) and loaded with ``ctypes``: the sources have a plain C
+``build/lib<name>-<hash>.so`` (the hash is of the source and the shared
+headers ``csrc/*.cuh``, so an edited source builds anew) and loaded with ``ctypes``: the sources have a plain C
 interface and include no PyTorch header, which keeps a build to seconds.
 A library builds at first use; :func:`build` starts one ``nvcc`` per
 source, all at once.  Nothing here runs when the module is imported.
@@ -45,8 +45,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -1,5 +1,5 @@
 // Capacity-format grouped matmul (the MoE expert FFN's products) for Hopper
-// (sm_90a), plain CUDA C++.
+// (sm_90a), plain CUDA C++: tensor cores for bf16, scalar FMAs for f32.
 //
 // Replaces the TPU kernel src/repro/kernels/moe_gmm.py::_gmm_kernel (line
 // 19, called through moe_gmm, pl.pallas_call at line 53).  Same function:
@@ -22,38 +22,65 @@
 // 498-token prefill of qwen3-moe-30b-a3b (C = 40), against the ~295 that
 // bf16 tensor cores need before arithmetic, not memory, is the limit.  At
 // decode one projection reads w [128, 2048, 768] bf16, 402,653,184 bytes:
-// 0.120 ms at 3.35 TB/s.  This first version does the products with
-// scalar f32 FMAs (67 TFLOP/s), which become the limit from C of about
-// 16 up: at C = 40 they need ~0.24 ms.  mma.sync or wgmma with TMA loads
-// are the way to the tensor-core rate and are later work.
+// 0.120 ms at 3.35 TB/s.  The aim is to keep the weight stream at the
+// memory rate for every serving C.
 //
-// Design, for the weight bytes:
+// bfloat16 design (gmm_mma_kernel), for the weight bytes:
+// - It computes out^T = w^T x^T on tensor cores (mma.sync m16n8k16 bf16,
+//   f32 accumulators), the weights on the M side: f fills the mma's 16
+//   rows and C its 8 columns, so decode's C = 8 is one n-tile and C = 40
+//   five, and a thread holds 4 * ceil(C/8) accumulators.  Scalar FMAs and
+//   their register-held accumulators, which kept the first version far
+//   from the byte bound at C = 8 and made it FMA-bound from C of about 16
+//   up, are gone.
+// - One block (8 warps) takes one expert, 128 f columns (16 a warp) and
+//   all C <= 64 rows, so each weight is read from device memory once a
+//   launch; above 64 rows C is tiled by 64, the C tiles of one weight tile
+//   neighbours in the grid so that they share it through L2.  Serving
+//   shapes give 768 blocks (gate, up) and 2048 (down).
+// - Weight tiles [64 d-rows x 128 f-cols] and the block's x rows [C x 64]
+//   stream through a 4-stage ring of 16-byte cp.async copies (zeros past
+//   the edges of C, d and f), so that three stages, up to 48 KB a block,
+//   are in flight while one is multiplied.  Weights reach the A fragments
+//   by ldmatrix.trans from their [k][f] rows, x the B fragments by
+//   ldmatrix from its [c][k] rows; rows are padded by 16 bytes against
+//   bank conflicts.  Shapes whose rows are not 16-byte aligned take
+//   element-wise loads into the same ring.
+// - The output tile goes through shared memory and leaves in 16-byte
+//   rows.
+// - Order of the sums (why a row of the output does not depend on the
+//   other rows of its launch): an mma's output element depends only on its
+//   row of A (weights), its column of B (one row of x) and its accumulator.
+//   Every output is one accumulator chain over d in ascending steps of 16
+//   (zero-padded past d), whatever C is and however C is tiled, so the
+//   expert-parallel path's [E, 8*40, d] launch gives each rank's rows bit
+//   for bit what the rank's own [E, 40, d] launch gives.
+//
+// float32 keeps a scalar kernel (gmm_kernel): TF32 tensor cores round the
+// inputs to 10 mantissa bits, far outside the 2 d 2^-24 sum|x||w| bound
+// that the f32 path is held to.  Its design:
 // - All C rows of an expert sit in one block when C <= 64 (every serving
 //   shape), so each weight element is read from device memory once per
 //   launch.  Above 64 rows C is tiled by 64.
 // - Every thread holds all TM rows of the block for TN neighbouring f
 //   columns (TM*TN accumulators in registers; TN = 8 at C <= 8, fewer as
 //   C grows), so a weight element is loaded by exactly one thread, straight
-//   into registers, as one vector of TN elements (16 bytes for bf16 at
-//   TN = 8) with neighbouring lanes on neighbouring addresses.  The block's
-//   x rows are staged in shared memory as f32 and read as broadcasts.
+//   into registers, as one vector of TN elements with neighbouring lanes
+//   on neighbouring addresses.  The block's x rows are staged in shared
+//   memory as f32 and read as broadcasts.
 // - The 8 warps split d: rows k with (k / 4) % 8 == warp belong to that
 //   warp, each warp sums its rows in ascending k (loading the next 4 rows'
 //   weights while it multiplies the current ones), and warp 0 then adds the
 //   other warps' partial sums in the order 1, 2, ..., 7.  That order is the
-//   same for every C, tile shape and launch, so a row of the output does
-//   not depend on how many other rows were in the launch (the expert-
-//   parallel path's [E, ep*C, d] launch gives each rank's rows bit for bit
-//   what the rank's own [E, C, d] launch gives).
+//   same for every C, tile shape and launch, so here too a row of the
+//   output does not depend on the other rows of the launch.
 // - Two blocks an SM (128 registers a thread); the x rows are staged one k
 //   at a time, TM values written as float4s.
-// It still runs at about half the byte bound in decode and a few times the
-// FMA bound in prefill (times in PERF.md): 16 warps an SM, each holding
-// 64-80 accumulators, keep too few weight loads in flight.  Tensor-core
-// fragments would free those registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_ptx.cuh"
 
 namespace {
 
@@ -66,17 +93,10 @@ constexpr int XS_BYTES = 48 * 1024;     // shared-memory budget of the x tile
 constexpr int MAX_TM = 64;         // C rows per block at most
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // N elements of T moved as one aligned vector (two for 32 bytes): loaded
@@ -120,9 +140,6 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, N>& o) {
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 
 // TN weights of row k from column col, as stored (zeros past the edges of
 // d and f).
@@ -323,6 +340,186 @@ int dispatch(const void* x, const void* w, void* out, long long E,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int G_NT = 256;             // 8 warps, 16 f columns each
+constexpr int G_BF = 128;             // f columns a block
+constexpr int G_BK = 64;              // d rows a stage
+constexpr int G_STAGES = 4;
+constexpr int G_WP = G_BF + 8;        // padded pitch of a weight row
+constexpr int G_XP = G_BK + 8;        // padded pitch of an x row
+constexpr int G_MAX_BN = 64;          // C rows a block at most
+
+constexpr size_t mma_smem(int bn) {
+  return (size_t)G_STAGES * (G_BK * G_WP + bn * G_XP) * sizeof(bf16);
+}
+
+// One block: C rows [blockIdx.x * BN, +BN) of expert blockIdx.z, f columns
+// [blockIdx.y * G_BF, +G_BF).  NTL = BN / 8 n-tiles.
+template <int NTL>
+__global__ void __launch_bounds__(G_NT)
+gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+               bf16* __restrict__ out, int C, int d, int f, int vec_w,
+               int vec_x, int vec_o) {
+  constexpr int BN = 8 * NTL;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][G_BK][G_WP]
+  bf16* xs = ws + G_STAGES * G_BK * G_WP;        // [STAGES][BN][G_XP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * BN;
+  const int f0 = blockIdx.y * G_BF;
+  const int e = blockIdx.z;
+  const int rows = min(BN, C - c0);
+  const bf16* xe = x + ((int64_t)e * C + c0) * d;
+  const bf16* we = w + (int64_t)e * d * f;
+  const int n_k = (d + G_BK - 1) / G_BK;
+
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * G_BK;
+    bf16* wsl = ws + slot * G_BK * G_WP;
+    for (int i = tid; i < G_BK * (G_BF / 8); i += G_NT) {
+      const int r = i / (G_BF / 8), c = (i % (G_BF / 8)) * 8;
+      const int k = k0 + r, col = f0 + c;
+      bf16* dst = wsl + r * G_WP + c;
+      const bf16* src = we + (int64_t)k * f + col;
+      if (vec_w) {
+        const bool ok = k < d && col < f;
+        tc::cp_async16(dst, ok ? src : we, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[j] = (k < d && col + j < f) ? src[j] : __float2bfloat16(0.f);
+      }
+    }
+    bf16* xsl = xs + slot * BN * G_XP;
+    for (int i = tid; i < BN * (G_BK / 8); i += G_NT) {
+      const int r = i / (G_BK / 8), c = (i % (G_BK / 8)) * 8;
+      const int k = k0 + c;
+      bf16* dst = xsl + r * G_XP + c;
+      const bf16* src = xe + (int64_t)r * d + k;
+      if (vec_x) {
+        const bool ok = r < rows && k < d;
+        tc::cp_async16(dst, ok ? src : xe, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[j] = (r < rows && k + j < d) ? src[j] : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  float acc[NTL][4];
+#pragma unroll
+  for (int j = 0; j < NTL; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < G_STAGES - 1; ++s) {
+    if (s < n_k) load_stage(s, s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    tc::cp_async_wait<G_STAGES - 2>();
+    __syncthreads();  // stage kt is in; every warp is done with kt - 1
+    const int nk = kt + G_STAGES - 1;
+    if (nk < n_k) load_stage(nk % G_STAGES, nk);
+    tc::cp_async_commit();
+    const bf16* wsl = ws + (kt % G_STAGES) * G_BK * G_WP;
+    const bf16* xsl = xs + (kt % G_STAGES) * BN * G_XP;
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) {
+      unsigned a[4];
+      tc::ldsm_x4_trans(a, wsl + (16 * kk + (lane & 7) + 8 * (lane >> 4)) *
+                                     G_WP +
+                               16 * warp + 8 * ((lane >> 3) & 1));
+#pragma unroll
+      for (int jp = 0; jp < NTL / 2; ++jp) {
+        unsigned b[4];
+        tc::ldsm_x4(b, xsl + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * G_XP +
+                           16 * kk + 8 * ((lane >> 3) & 1));
+        tc::mma_bf16(acc[2 * jp], a, b[0], b[1]);
+        tc::mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+      }
+      if (NTL % 2) {
+        unsigned b[2];
+        tc::ldsm_x2(b, xsl + (8 * (NTL - 1) + (lane & 7)) * G_XP + 16 * kk +
+                           8 * ((lane >> 3) & 1));
+        tc::mma_bf16(acc[NTL - 1], a, b[0], b[1]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the output tile [BN][G_WP] goes there
+
+  // acc[j]: f column 16 warp + g (+8 for [2], [3]), C row 8 j + 2 t (+1)
+  const int g = lane >> 2, t = lane & 3;
+  bf16* os = ws;
+#pragma unroll
+  for (int j = 0; j < NTL; ++j) {
+    const int n = 8 * j + 2 * t, m = 16 * warp + g;
+    os[n * G_WP + m] = __float2bfloat16(acc[j][0]);
+    os[(n + 1) * G_WP + m] = __float2bfloat16(acc[j][1]);
+    os[n * G_WP + m + 8] = __float2bfloat16(acc[j][2]);
+    os[(n + 1) * G_WP + m + 8] = __float2bfloat16(acc[j][3]);
+  }
+  __syncthreads();
+  bf16* oe = out + ((int64_t)e * C + c0) * f + f0;
+  for (int i = tid; i < BN * (G_BF / 8); i += G_NT) {
+    const int r = i / (G_BF / 8), c = (i % (G_BF / 8)) * 8;
+    if (r >= rows || f0 + c >= f) continue;
+    const bf16* src = os + r * G_WP + c;
+    bf16* dst = oe + (int64_t)r * f + c;
+    if (vec_o) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && f0 + c + j < f; ++j) dst[j] = src[j];
+    }
+  }
+}
+
+template <int NTL>
+int launch_mma(const void* x, const void* w, void* out, long long E,
+               long long C, long long d, long long f, cudaStream_t stream) {
+  constexpr int BN = 8 * NTL;
+  const long long c_tiles = (C + BN - 1) / BN;
+  const long long f_tiles = (f + G_BF - 1) / G_BF;
+  if (E > 65535 || f_tiles > 65535 || c_tiles > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mma_smem(BN);
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_mma_kernel<NTL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  dim3 grid((unsigned)c_tiles, (unsigned)f_tiles, (unsigned)E);
+  gmm_mma_kernel<NTL><<<grid, G_NT, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<bf16*>(out), (int)C, (int)d, (int)f,
+      a16(w) && f % 8 == 0, a16(x) && d % 8 == 0, a16(out) && f % 8 == 0);
+  return (int)cudaGetLastError();
+}
+
+// all C rows in one block up to 64, else tiles of 64
+int dispatch_mma(const void* x, const void* w, void* out, long long E,
+                 long long C, long long d, long long f, cudaStream_t stream) {
+  const long long ntl = C >= G_MAX_BN ? G_MAX_BN / 8 : (C + 7) / 8;
+  switch (ntl) {
+#define LCX_CASE(N) \
+  case N:           \
+    return launch_mma<N>(x, w, out, E, C, d, f, stream);
+    LCX_CASE(1) LCX_CASE(2) LCX_CASE(3) LCX_CASE(4)
+    LCX_CASE(5) LCX_CASE(6) LCX_CASE(7) LCX_CASE(8)
+#undef LCX_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x [E, C, d], w [E, d, f], out
@@ -337,6 +534,6 @@ extern "C" int lcx_moe_gmm(const void* x, const void* w, void* out,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(x, w, out, E, C, d, f, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(x, w, out, E, C, d, f, st);
+  if (dtype == 1) return dispatch_mma(x, w, out, E, C, d, f, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,12 @@ the PV product, a top-left aligned causal mask (row >= col, which is
 ``kernels/ref.py``'s bottom-right mask only when Sq == Sk), and the
 ``l == 0 -> 1`` guard.
 
+The kernel reads q, k and v as strided views (innermost dim contiguous)
+and writes its output into a ``[B, Sq, Hq, Dv]`` buffer that it returns as
+the ``[B, Hq, Sq, Dv]`` view: the model's seq-major activations go in and
+come out without a copy.  bfloat16 runs on tensor cores, float32 on
+scalar FMAs (``csrc/flash_attention.cu``).
+
 ``launches`` counts the kernel's launches; nothing else adds to it.
 """
 from __future__ import annotations
@@ -25,7 +31,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+             + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -79,8 +86,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q [B,Hq,Sq,Dk], k [B,Hkv,Sk,Dk], v [B,Hkv,Sk,Dv] -> [B,Hq,Sq,Dv].
 
-    CUDA tensors (contiguous, float32 or bfloat16, head dims up to 128)
-    go to the kernel on the current stream; CPU tensors go to
+    CUDA tensors (float32 or bfloat16, head dims up to 128, any strides
+    with a contiguous innermost dim) go to the kernel on the current
+    stream, whose output is the ``[B,Hq,Sq,Dv]`` view of a
+    ``[B,Sq,Hq,Dv]``-contiguous tensor; CPU tensors go to
     :func:`flash_attention_plain`.  Anything else raises."""
     global launches
     _check(q, k, v)
@@ -88,22 +97,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the flash-attention kernel needs contiguous q, k, v")
+    if any(t.stride(3) != 1 and t.shape[3] > 1 for t in (q, k, v)):
+        raise ValueError("the flash-attention kernel needs q, k, v with a "
+                         "contiguous innermost (head) dim")
     b, hq, sq, dk = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if max(dk, dv) > MAX_HEAD_DIM:
         raise ValueError(f"head dims {dk}/{dv} exceed {MAX_HEAD_DIM}")
     scale = dk ** -0.5 if scale is None else scale
-    out = torch.empty((b, hq, sq, dv), dtype=v.dtype, device=q.device)
+    if not scale > 0:
+        raise ValueError(f"the flash-attention kernel takes a positive "
+                         f"scale, got {scale}")
+    out = torch.empty((b, sq, hq, dv), dtype=v.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*[
+        st for t in (q, k, v, out) for st in t.stride()[:3]])
     fn = build.load("flash_attention").lcx_flash_attention_fwd
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, sk, dk, dv, float(scale), int(causal),
-                _DTYPES[q.dtype], stream)
+                strides, b, hq, hkv, sq, sk, dk, dv, float(scale),
+                int(causal), _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -55,10 +55,9 @@ def model_kernels(cfg: Any) -> Dict[str, Callable[..., Any]]:
     of later slices)."""
 
     def attn_hook(q, k, v, *, causal, scale):
-        o = flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(),
-                            causal=causal, scale=scale)
+        # the kernel reads the transposed views and writes [B,S,H,D]
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, scale=scale)
         return o.transpose(1, 2)
 
     def ssd_hook(x, dt, A, Bm, Cm, *, chunk):

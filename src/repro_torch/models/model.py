@@ -131,7 +131,8 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
         h = norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
         if spec.ffn == "moe":
             y, aux = moe_apply(cfg, p["ffn"], h,
-                               kernel_fn=kernels.get("moe_gmm"))
+                               kernel_fn=kernels.get("moe_gmm"),
+                               decode=(mode == "decode"))
         else:
             y = ffn_apply(cfg, p["ffn"], h)
         x = x + y
@@ -283,7 +284,10 @@ def decode_step(cfg: Any, params: PyTree, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, PyTree]:
     """One token for every sequence.  tokens [B, 1]; ``lengths`` is each
     sequence's cache fill, ``[B]`` or one int for all.  Writes the cache
-    in place; returns (logits [B, 1, V], caches)."""
+    in place; returns (logits [B, 1, V], caches).  An MoE layer routes
+    each sequence's token as if it were alone, as the reference's engine
+    does by mapping decode over the sequences: no expert drops one
+    (``moe.decode_capacity``)."""
     b = tokens.shape[0]
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=tokens.device).expand(b).contiguous()

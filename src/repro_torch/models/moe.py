@@ -113,6 +113,15 @@ def capacity(cfg: Any, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)        # multiple of 8, as the reference
 
 
+def decode_capacity(cfg: Any, n_slots: int) -> int:
+    """Capacity of a decode step that routes ``n_slots`` one-token
+    sequences in one call.  The reference's engine routes each slot alone
+    (T = 1, capacity 8), so it drops no decode token; here every slot that
+    chose an expert must fit, and since a token's top-k experts are
+    distinct, an expert gets at most ``n_slots`` rows."""
+    return max(capacity(cfg, n_slots), -(-n_slots // 8) * 8)
+
+
 def dispatch(x_flat: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
              E: int, C: int) -> Tuple[torch.Tensor, PyTree]:
     """x_flat [T, d]; ids/w [T, k] -> (buf [E, C, d], combine info).
@@ -172,10 +181,14 @@ def _moe_dense(cfg: Any, p: PyTree, x_flat: torch.Tensor
 
 
 def _moe_sort_local(cfg: Any, p: PyTree, x_flat: torch.Tensor,
-                    stream_chunks: int = 0, kernel_fn: KernelFn = None
+                    stream_chunks: int = 0, kernel_fn: KernelFn = None,
+                    decode: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode``: each row of ``x_flat`` is one sequence's decode token,
+    routed as if alone (:func:`decode_capacity`)."""
     ids, w, aux = route(cfg, p["router"], x_flat)
-    C = capacity(cfg, x_flat.shape[0])
+    T = x_flat.shape[0]
+    C = decode_capacity(cfg, T) if decode else capacity(cfg, T)
     buf, info = dispatch(x_flat, ids, w, cfg.n_experts, C)
     if stream_chunks > 1 and cfg.n_experts % stream_chunks == 0:
         # the reference's weight-streamed decode: the expert FFN over
@@ -242,18 +255,21 @@ def _moe_ep_shard(cfg: Any, p: PyTree, x: torch.Tensor, ep_axis: str,
 
 
 def moe_apply(cfg: Any, p: PyTree, x: torch.Tensor,
-              kernel_fn: KernelFn = None
+              kernel_fn: KernelFn = None, decode: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux loss scalar).  With no mesh, as
     the reference without an active one: ``dense`` stays dense (the
     oracle, which runs no kernel), every other backend (``lcx`` included)
-    takes the sort path."""
+    takes the sort path.  ``decode`` (x [B, 1, d], one token for each of
+    B sequences): the sort path routes each token as the reference's
+    per-slot decode does, with :func:`decode_capacity`."""
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     if cfg.moe_backend == "dense":
         y, aux = _moe_dense(cfg, p, x_flat)
     else:
-        y, aux = _moe_sort_local(cfg, p, x_flat, kernel_fn=kernel_fn)
+        y, aux = _moe_sort_local(cfg, p, x_flat, kernel_fn=kernel_fn,
+                                 decode=decode)
     y = y.reshape(b, s, d)
     if cfg.n_shared_experts:
         g = dense(p["shared_gate"], x)

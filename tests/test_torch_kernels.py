@@ -130,6 +130,58 @@ def test_model_kernels_hook_matches_model_layout():
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_takes_strided_views(case):
+    """q, k, v as the model's attention hook passes them: transposed views
+    of [B, S, H, D] tensors.  The wrapper returns what it returns for their
+    contiguous copies, and the Pallas kernel's result on the same values."""
+    b, hq, hkv, sq, sk, dk, dv, causal, dtype = case
+    arrs = [a.transpose(0, 2, 1, 3).copy() for a in
+            _inputs(sum(case[:7]) + 1, b, hq, hkv, sq, sk, dk, dv)]
+    (jq, jk, jv), seq_major = _both(arrs, dtype)
+    views = [t.transpose(1, 2) for t in seq_major]
+    assert sq == 1 or not views[0].is_contiguous()
+    got = tfa.flash_attention(*views, causal=causal)
+    want = tfa.flash_attention(*[t.contiguous() for t in views],
+                               causal=causal)
+    assert torch.equal(got, want)
+    pallas = flash_pallas(*[x.transpose(0, 2, 1, 3) for x in (jq, jk, jv)],
+                          causal=causal, block_q=64, block_k=64,
+                          interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_kernels_hook_passes_views_without_copies(dtype,
+                                                       monkeypatch):
+    """The hook hands the kernel the transposed views with no copy and
+    gives what the hook with contiguous copies gave."""
+    kw = dict(n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+              vocab=64, q_block=16)
+    dt = getattr(torch, dtype)
+    hook = tops.model_kernels(TConfig(dtype=dt, param_dtype=dt, **kw)
+                              )["flash_attention"]
+    rng = np.random.default_rng(4)
+    q, k, v = [torch.from_numpy(rng.standard_normal((2, 40, h, 16),
+                                                    np.float32)).to(dt)
+               for h in (4, 2, 2)]
+    before = tfa.flash_attention(q.transpose(1, 2).contiguous(),
+                                 k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(),
+                                 causal=True, scale=0.25).transpose(1, 2)
+    seen = []
+    real = tfa.flash_attention
+
+    def spy(*args, **kwargs):
+        seen.extend(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tops, "flash_attention", spy)
+    got = hook(q, k, v, causal=True, scale=0.25)
+    assert [a.data_ptr() for a in seen] == [t.data_ptr() for t in (q, k, v)]
+    assert torch.equal(got, before)
+
+
 def test_wrapper_never_falls_back_for_other_devices():
     """Only CPU tensors take the plain version: a tensor on any other
     device goes to the kernel or raises."""

@@ -95,6 +95,40 @@ def test_capacity(n_tokens, shape):
     assert tm.capacity(tc, n_tokens) == jm.capacity(jc, n_tokens)
 
 
+@pytest.mark.parametrize("n_slots", [1, 8, 12, 16, 33])
+@pytest.mark.parametrize("shape", [(8, 2, 1.0), (128, 8, 1.25), (16, 2, 8.0)])
+def test_decode_capacity_holds_every_slot(n_slots, shape):
+    """A decode step routes n_slots one-token sequences at once: its
+    capacity holds every slot that chose an expert, and is the reference's
+    capacity wherever that already does."""
+    E, k, cf = shape
+    _, tc = _cfgs(n_experts=E, n_experts_per_tok=k, capacity_factor=cf)
+    c = tm.decode_capacity(tc, n_slots)
+    assert c >= n_slots and c % 8 == 0
+    assert c == max(tm.capacity(tc, n_slots), -(-n_slots // 8) * 8)
+
+
+def test_sort_local_decode_routes_each_token_alone():
+    """The reference's engine routes each decode slot alone (T = 1); the
+    port's decode routes 16 slots in one call.  With 12 slots holding the
+    same token, 12 > capacity(16) = 8 rows go to one expert: the batched
+    call with ``decode=True`` keeps them all and equals the reference's
+    per-token results, while the prefill capacity drops some."""
+    jc, tc = _cfgs()
+    jp, tp = _both(_params(jc, seed=11))
+    x = _x(12, 16, jc.d_model)
+    x[4:] = x[3]
+    ids, _, _ = tm.route(tc, tp["router"], torch.from_numpy(x))
+    per_expert = torch.bincount(ids.reshape(-1), minlength=jc.n_experts)
+    assert int(per_expert.max()) > tm.capacity(tc, 16)
+    want = np.concatenate([np.asarray(jm._moe_sort_local(
+        jc, jp, jnp.asarray(x[i:i + 1]))[0]) for i in range(16)])
+    got, _ = tm._moe_sort_local(tc, tp, torch.from_numpy(x), decode=True)
+    _close(got.numpy(), want)
+    dropped, _ = tm._moe_sort_local(tc, tp, torch.from_numpy(x))
+    assert np.abs(dropped.numpy() - want).max() > 1e-2
+
+
 def _routed(seed, T, jc, tc):
     jp, tp = _both(_params(jc))
     x = _x(seed, T, jc.d_model)

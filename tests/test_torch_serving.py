@@ -262,9 +262,8 @@ def test_ssm_greedy_matches_full_forward(ssm_setup):
 # ---------------------------------------------------------------------------
 # MoE serving.  The reference vmaps decode over the slots, so each slot's
 # token is routed alone (T = 1, capacity 8); the port decodes all slots in
-# one batch (T = n_slots, capacity(n_slots) >= 8).  With n_slots <= 8 no
-# expert can be sent more tokens than its capacity on either side, so the
-# two agree (ROADMAP.md, section 4).
+# one batch with models.moe.decode_capacity(n_slots) >= n_slots, so no
+# expert drops a decode token on either side, whatever the slot count.
 # ---------------------------------------------------------------------------
 from repro.configs.jamba_1_5_large_398b import smoke as jjamba  # noqa: E402
 from repro.configs.qwen3_moe_30b_a3b import smoke as jqwen3  # noqa: E402
@@ -303,3 +302,47 @@ def test_moe_engine_matches_reference(moe_setup, kernels):
     _same(jd, te.run_until_drained())
     assert te.stats == jstats
     assert te.stats["prefills"] == len(prompts) and not te.failed
+
+
+def test_moe_engine_with_more_slots_than_capacity_matches_reference(
+        monkeypatch):
+    """qwen3-moe's smoke config at capacity factor 1.0 on 16 slots, ten
+    of which hold the same prompt: in decode one expert is chosen by more
+    slots than capacity(16) = 8, which the reference (each slot routed
+    alone) keeps; the port's batched decode must keep them too."""
+    import dataclasses
+    from repro_torch.models import moe as tm
+
+    jcfg = dataclasses.replace(jqwen3(), capacity_factor=1.0)
+    tcfg = dataclasses.replace(tqwen3(), capacity_factor=1.0)
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(5))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(8)
+    same = rng.integers(0, jcfg.vocab, 9).astype(np.int32)
+    prompts = [same] * 10 + [rng.integers(0, jcfg.vocab, 9).astype(np.int32)
+                             for _ in range(6)]
+    scfg = dict(n_slots=16, max_seq=32, max_new_tokens=4)
+    je = JEngine(jcfg, jp, JServe(**scfg))
+    te = TEngine(tcfg, tp, TServe(**scfg), device="cpu")
+    for i, p in enumerate(prompts):
+        je.submit(JRequest(rid=i, prompt=p))
+        te.submit(TRequest(rid=i, prompt=p))
+    jd = je.run_until_drained()
+
+    # the precondition, read from the router on each decode tick's hidden
+    # states: some expert is chosen by more slots than capacity(n_slots)
+    most = []
+    route = tm.route
+
+    def spy(cfg, router_p, x):
+        out = route(cfg, router_p, x)
+        if x.shape[0] == scfg["n_slots"]:
+            most.append(int(torch.bincount(
+                out[0].reshape(-1), minlength=cfg.n_experts).max()))
+        return out
+
+    monkeypatch.setattr(tm, "route", spy)
+    td = te.run_until_drained()
+    assert most and max(most) > tm.capacity(tcfg, scfg["n_slots"])
+    _same(jd, td)
+    assert te.stats == je.stats
