@@ -80,7 +80,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_NEW, SERVE_REQUESTS = 8, 1024, 32, 16
 CHECK_SEQS = (1, 7, 100, 512, 1024)
-SSD_SEQS = (1, 7, 64, 100, 257, 512, 1024)
+# 65: one row in the second chunk; 2048: a 32-chunk state pass
+SSD_SEQS = (1, 7, 64, 65, 100, 257, 512, 1024, 2048)
+# the SSD kernel's previous design (one block per (b, h) walking its
+# chunks), measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# mean ms over the mamba2-130m serve prompt lengths, and at S = 1024 in
+# the mixer's layout and with contiguous per-head B/C
+SSD_OLD_MS = {"serve": 0.15873, 1: 0.56021, None: 0.56140}
 # kernel vs plain version (atol, rtol): the two sum in another order, and
 # in bf16 each rounds p and the output, so they may land one bf16 step
 # (2^-8 relative) apart; the f32 bound is tests/test_kernels.py's
@@ -416,6 +422,14 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype, groups=None):
     return x, dt, A, Bm, Cm
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name with its template arguments, without
+    the namespace and the parameter list."""
+    import re
+    m = re.search(r"(\w+(<[^<>]*>)?)\(", key)
+    return m.group(1) if m else key[:60]
+
+
 def _layout(args) -> str:
     x, _, _, Bm, _ = args
     return (f"x strides {tuple(x.stride())}, B strides "
@@ -437,11 +451,14 @@ def phase_ssd_check(serve_lens):
     serve = (1, 24, 64, 128, bf16, 1)
     cases = [(1, s, 24, 64, 128, bf16, 1)
              for s in sorted(set(SSD_SEQS) | set(serve_lens))]
-    cases += [(1, 100, 24, 64, 128, bf16, None),
+    cases += [(2, 300, 24, 64, 128, bf16, 1),
+              (1, 100, 24, 64, 128, bf16, None),
               (1, 1024, 24, 64, 128, bf16, None),
               (2, 100, 24, 64, 128, f32, None), (2, 100, 24, 64, 128, f32, 1),
               (1, 77, 3, 40, 24, f32, None), (1, 130, 2, 128, 96, bf16, None),
-              (1, 130, 4, 40, 24, bf16, 2)]
+              (1, 130, 4, 40, 24, bf16, 2),
+              # head dim and state not multiples of 8: element-wise loads
+              (1, 70, 2, 7, 5, bf16, None)]
     launches0 = ssd.launches
     path_err = 0.0
     for (b, s, h, p, n, dt, g) in cases:
@@ -497,7 +514,8 @@ def phase_ssd_check(serve_lens):
         "library_ms": None,
     }
     log(f"ssd device time over the {n} serve prompt lengths (mean per "
-        f"call, ms): kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
+        f"call, ms): kernel {row['ms']:.5f} (previous design "
+        f"{SSD_OLD_MS['serve']:.5f}), plain {row['plain_ms']:.5f}, "
         f"bound {row['bound_ms']:.6f} ({row['bound_by']}; chunk "
         f"{ssd.CHUNK}); no library call computes it; kernel with host "
         f"launch gaps (CUDA events) {sum(host) / n:.5f}")
@@ -509,9 +527,24 @@ def phase_ssd_check(serve_lens):
                                         "bfloat16", ssd.CHUNK)
         log(f"ssd device time at S=1024, "
             f"{'the mixer layout' if g else 'contiguous per-head B/C'} "
-            f"(ms): kernel {k_ms:.5f}, plain {p_ms:.5f}, bound "
+            f"(ms): kernel {k_ms:.5f} (previous design {SSD_OLD_MS[g]:.5f}"
+            f"), plain {p_ms:.5f}, bound "
             f"{max(ops_ms, bytes_ms):.6f} (operations {ops_ms:.6f}, bytes "
             f"{bytes_ms:.6f})")
+    # each of a call's three launches (chunk states, the pass over them,
+    # the outputs) by the kernel's name, in the mixer's layout
+    for s in (512, 1024):
+        args = _ssd_inputs(gen, 1, s, 24, 64, 128, bf16, 1)
+        reps = 20
+        for _ in range(3):
+            ssd.ssd_scan(*args)
+        _, kern = trace(lambda: [ssd.ssd_scan(*args) for _ in range(reps)])
+        parts = ", ".join(
+            f"{_kernel_name(e.key)} "
+            f"{e.self_device_time_total / 1e3 / reps:.5f} (x{e.count})"
+            for e in kern)
+        log(f"ssd device time a launch at S={s}, the mixer layout (ms, mean "
+            f"of {reps} calls): {parts}")
     log(f"ssd checks and timing launched the kernel "
         f"{ssd.launches - launches0} times (not counted below)")
     return row
@@ -674,12 +707,14 @@ def phase_profile(cfg, params, kernels, prompts):
 def expected_launches(cfg, prefills, ticks=0) -> dict:
     """Each kernel's launches in a serve run: flash and SSD once per
     prefill and layer of their kind (decode attention and Mamba decode
-    are plain PyTorch, as in the reference); the grouped matmul once per
-    expert projection (3) of every MoE layer in every prefill and decode
-    tick."""
+    are plain PyTorch, as in the reference), flash only for a config
+    without a sliding window (``model_kernels`` gives a windowed config
+    no flash hook); the grouped matmul once per expert projection (3) of
+    every MoE layer in every prefill and decode tick."""
     plan = cfg.layer_plan()
-    return {"flash_attention": prefills * sum(l.mixer == "attn"
-                                              for l in plan),
+    flash = 0 if cfg.sliding_window else 1
+    return {"flash_attention": flash * prefills * sum(l.mixer == "attn"
+                                                      for l in plan),
             "ssd_scan": prefills * sum(l.mixer == "mamba" for l in plan),
             "ring_allgather": 0,
             "moe_gmm": 3 * (prefills + ticks) * sum(l.ffn == "moe"

@@ -4,7 +4,8 @@
 `repro_torch.models` reads, with the reference's hook signatures:
 
 - ``flash_attention(q, k, v, *, causal, scale)``: the model's seq-major
-  layout, q [B,S,Hq,D] and k/v [B,S,Hkv,D] -> [B,S,Hq,Dv];
+  layout, q [B,S,Hq,D] and k/v [B,S,Hkv,D] -> [B,S,Hq,Dv]; left out for
+  a config with a ``sliding_window`` (the kernel has no window mask);
 - ``ssd_scan(x, dt, A, B, C, *, chunk)`` -> (y, h_final): the model's
   layout, which the kernel reads as it is.  ``chunk`` is the TPU
   kernel's block size (``cfg.ssm_chunk``); the CUDA kernel keeps its own
@@ -51,8 +52,13 @@ def ring_all_gather(x: torch.Tensor, axis: str, *,
 
 
 def model_kernels(cfg: Any) -> Dict[str, Callable[..., Any]]:
-    """Kernels dict for the model hooks (``cfg`` is kept for the hooks
-    of later slices)."""
+    """Kernels dict for the model hooks.
+
+    A config with a ``sliding_window`` gets no ``flash_attention`` hook:
+    the kernel applies no window, so prefill takes the plain windowed
+    attention (``attention_full`` / ``attention_chunked``), as the
+    reference's serve path does (it builds its engine with no kernels).
+    Such a config keeps the ``ssd_scan`` and ``moe_gmm`` hooks."""
 
     def attn_hook(q, k, v, *, causal, scale):
         # the kernel reads the transposed views and writes [B,S,H,D]
@@ -63,5 +69,7 @@ def model_kernels(cfg: Any) -> Dict[str, Callable[..., Any]]:
     def ssd_hook(x, dt, A, Bm, Cm, *, chunk):
         return ssd_scan(x, dt, A, Bm, Cm)
 
-    return {"flash_attention": attn_hook, "ssd_scan": ssd_hook,
-            "moe_gmm": moe_gmm}
+    hooks = {"ssd_scan": ssd_hook, "moe_gmm": moe_gmm}
+    if not getattr(cfg, "sliding_window", None):  # cfg may be None
+        hooks["flash_attention"] = attn_hook
+    return hooks

@@ -13,7 +13,13 @@ cumulative decay stays flat over them and the state is unchanged.  (The
 Pallas wrapper and ``ssd_chunked`` halve the chunk until it divides S
 instead, down to one-row chunks for a prime S.)
 
-``launches`` counts the kernel's launches; nothing else adds to it.
+On the card a call runs the chunk-parallel design of ``csrc/ssd_scan.cu``
+in three kernel launches (each chunk's own state, the sequential pass
+over chunk states, the outputs), with an f32 workspace of
+:func:`workspace_floats` floats from ``torch.empty``.  ``launches``
+counts calls of :func:`ssd_scan` that reach the kernel (one per Mamba
+layer and prefill), not the three launches inside one; nothing else adds
+to it.
 """
 from __future__ import annotations
 
@@ -32,8 +38,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def workspace_floats(b: int, s: int, h: int, p: int, n: int) -> int:
+    """f32 floats of the kernel's workspace: each chunk's state [B,H,nc,N,P]
+    (replaced in place by the state entering the chunk) and its decay
+    gamma [B,H,nc]."""
+    return b * h * (-(-s // CHUNK)) * (n * p + 1)
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -138,6 +151,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     h_final = torch.empty((b, h, n, p), dtype=torch.float32,
                           device=x.device)
+    ws = torch.empty(workspace_floats(b, s, h, p, n), dtype=torch.float32,
+                     device=x.device)
     fn = build.load("ssd_scan").lcx_ssd_scan_fwd
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -145,7 +160,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(),
-                b, s, h, p, n, *x.stride()[:3], *dt.stride(),
+                ws.data_ptr(), b, s, h, p, n, *x.stride()[:3], *dt.stride(),
                 *Bm.stride()[:3], *Cm.stride()[:3], _DTYPES[x.dtype],
                 stream)
     if rc != 0:

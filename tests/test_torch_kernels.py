@@ -255,6 +255,92 @@ def test_plain_ssd_scan_matches_pallas_interpret(case):
     np.testing.assert_allclose(_np(rh), _np(gold_h), atol=SSD_TOL[dtype])
 
 
+# chip_smoke.py's bounds for the CUDA kernel in bf16: y within (atol,
+# rtol), h_final (f32) within an absolute 1e-4
+CHIP_SSD_TOL = (1e-2, 1e-2)
+CHIP_SSD_H_ATOL = 1e-4
+
+
+def _split(t):
+    """An f32 operand as the CUDA kernel feeds it to bf16 tensor cores:
+    hi = bf16(t), lo = bf16(t - hi), each back in f32 (the products of
+    two bf16 values are exact in the f32 sums)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _ssd_kernel_scheme(x, dt, A, Bm, Cm, cs=64):
+    """``csrc/ssd_scan.cu``'s bf16 arithmetic in plain PyTorch, phase by
+    phase: (1) each chunk's state, B^T (coef x) with coef x split;
+    (2) the pass over chunk states in f32; (3) C B^T from the bf16
+    inputs, w split, y = w x + exp(cum) (C h) with h split and the row
+    decay applied after the product.  Chunks of ``cs`` rows, the tail as
+    dt = 0 and x = B = C = 0."""
+    b, s, h, p = x.shape
+    nc = -(-s // cs)
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t.float(),
+                                    (0, 0) * (t.dim() - 2) + (0, nc * cs - s))
+        return t.reshape((b, nc, cs) + tuple(t.shape[2:]))
+
+    xs, dts, Bs, Cs = map(chunks, (x, dt, Bm, Cm))
+    cum = torch.cumsum(dts * A, dim=2)                  # [b,nc,cs,h]
+    cum_last = cum[:, :, -1:]
+    # phase 1
+    xh, xl = _split((torch.exp(cum_last - cum) * dts)[..., None] * xs)
+    states = sum(torch.einsum("bcjhn,bcjhp->bchnp", Bs, part)
+                 for part in (xh, xl))
+    gamma = torch.exp(cum_last[:, :, 0])                # [b,nc,h]
+    # phase 2
+    hstate = torch.zeros((b, h, Bm.shape[-1], p))
+    h_in = []
+    for c in range(nc):
+        h_in.append(hstate)
+        hstate = hstate * gamma[:, c, :, None, None] + states[:, c]
+    # phase 3
+    ct = cum.transpose(2, 3)
+    tri = torch.ones(cs, cs, dtype=torch.bool).tril()
+    w = (torch.einsum("bcihn,bcjhn->bchij", Cs, Bs)
+         * torch.exp((ct[..., :, None] - ct[..., None, :])
+                     .masked_fill(~tri, float("-inf")))
+         * dts.transpose(2, 3)[..., None, :])
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", part, xs)
+            for part in _split(w))
+    off = sum(torch.einsum("bcihn,bchnp->bcihp", Cs, part)
+              for part in _split(torch.stack(h_in, dim=1)))
+    y = y + off * torch.exp(cum)[..., None]
+    return y.reshape(b, nc * cs, h, p)[:, :s].to(x.dtype), hstate
+
+
+@pytest.mark.parametrize("s", [1, 65, 257])
+def test_ssd_kernel_scheme_fits_chip_bounds(s):
+    """The CUDA kernel's operand rounding (bf16 high/low splits of the
+    three f32 operands) at mamba2-130m's widths (H = 24, P = 64, N = 128,
+    one group shared by the heads, bf16, the mixer's value scales as
+    chip_smoke.py draws them) against the Pallas kernel in interpret
+    mode, within the bounds chip_smoke.py holds the kernel to."""
+    b, h, p, n = 1, 24, 64, 128
+    rng = np.random.default_rng(s)
+    x = rng.standard_normal((b, s, h, p), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 2.0)
+                  ).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, h, dtype=np.float32)
+    bc = 0.3 * rng.standard_normal((2, b, s, 1, n)).astype(np.float32)
+    Bm, Cm = (np.ascontiguousarray(np.broadcast_to(t, (b, s, h, n)))
+              for t in bc)
+    (jx, jb, jc), (tx, tb, tc) = _both((x, Bm, Cm), "bfloat16")
+    want_y, want_h = jops.ssd_scan(jx, jnp.asarray(dt), jnp.asarray(A), jb,
+                                   jc, chunk=64, backend="pallas")
+    y, hf = _ssd_kernel_scheme(tx, torch.from_numpy(dt),
+                               torch.from_numpy(A), tb, tc)
+    assert y.dtype == torch.bfloat16
+    atol, rtol = CHIP_SSD_TOL
+    want_y = _np(want_y)
+    assert (np.abs(_np(y) - want_y) <= atol + rtol * np.abs(want_y)).all()
+    assert np.abs(_np(hf) - _np(want_h)).max() <= CHIP_SSD_H_ATOL
+
+
 def test_ssd_hook_matches_model_layout():
     """The ``ssd_scan`` hook takes the model's layout and the chunk, as
     the reference's hook does."""

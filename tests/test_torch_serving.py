@@ -92,6 +92,63 @@ def test_flash_hook_engine_matches_reference(dense_setup):
     assert te.stats == je.stats
 
 
+@pytest.fixture(scope="module")
+def windowed_setup():
+    """qwen2-0.5b's smoke config with an 8-row sliding window on both
+    sides, the reference's params loaded into the port."""
+    import dataclasses
+    from repro.configs.qwen2_0_5b import smoke as jqwen2
+    from repro_torch.configs.qwen2_0_5b import smoke as tqwen2
+    jcfg = dataclasses.replace(jqwen2(), sliding_window=8)
+    tcfg = dataclasses.replace(tqwen2(), sliding_window=8)
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(3))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_model_kernels_of_windowed_config_has_no_flash_hook(windowed_setup):
+    """The flash kernel applies no window, so a windowed config gets no
+    flash hook; the SSD and grouped-matmul hooks stay."""
+    _, tcfg, _, _ = windowed_setup
+    hooks = model_kernels(tcfg)
+    assert "flash_attention" not in hooks
+    assert {"ssd_scan", "moe_gmm"} <= set(hooks)
+    assert "flash_attention" in model_kernels(
+        TConfig(dtype=torch.float32, param_dtype=torch.float32, **DENSE))
+
+
+@pytest.mark.parametrize("plen", [11, 21])
+def test_windowed_prefill_with_kernels_matches_reference(windowed_setup,
+                                                         plen):
+    """A prompt longer than the window: the port's prefill with
+    ``model_kernels(cfg)`` (as its serve path builds the engine) gives
+    the reference's prefill logits, which it computes with no kernels
+    (as ``repro.launch.serve`` builds its engine), and the same greedy
+    tokens through both engines.  21 rows exceed ``q_block`` (16), so
+    the chunked attention runs too."""
+    from repro.models import init_cache as jcache
+    from repro.models import prefill as jprefill
+    from repro_torch.models import init_cache as tcache
+    from repro_torch.models import prefill as tprefill
+    jcfg, tcfg, jp, tp = windowed_setup
+    prompt = np.random.default_rng(plen).integers(
+        0, jcfg.vocab, plen).astype(np.int32)
+    want, _ = jprefill(jcfg, jp, jnp.asarray(prompt)[None],
+                       jcache(jcfg, 1, 32))
+    got, _ = tprefill(tcfg, tp, torch.as_tensor(prompt)[None],
+                      tcache(tcfg, 1, 32, device="cpu"),
+                      kernels=model_kernels(tcfg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    scfg = dict(n_slots=1, max_seq=32, max_new_tokens=5)
+    je = JEngine(jcfg, jp, JServe(**scfg))
+    te = TEngine(tcfg, tp, TServe(**scfg), device="cpu",
+                 kernels=model_kernels(tcfg))
+    je.submit(JRequest(rid=0, prompt=prompt))
+    te.submit(TRequest(rid=0, prompt=prompt))
+    _same(je.run_until_drained(), te.run_until_drained())
+
+
 def test_continuous_batching_drains(dense_setup):
     prompts = [np.arange(4 + i % 3, dtype=np.int32) for i in range(7)]
     je, jd, te, td = _serve(dense_setup, prompts,
