@@ -9,8 +9,9 @@ non-zero:
 1. device: CUDA with compute capability (9, 0), the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port, one ``nvcc`` each, in parallel;
-3. kernel checks: each kernel (flash attention, SSD scan, the MoE
-   grouped matmul) against its plain PyTorch version on the card, at the
+3. kernel checks: each kernel (flash attention, SSD scan, the ring
+   all-gather, the MoE grouped matmul) against its plain PyTorch version
+   on the card (the ring bit for bit, x aligned and not), at the
    serving shapes and a few others (flash also at qwen3-moe-30b-a3b's
    attention shape and on the strided seq-major views the model's hook
    passes), then timed beside its plain version and, where one exists,
@@ -103,6 +104,14 @@ SSD_H_ATOL = 1e-4
 RING_NS = (1, 2, 4, 8)
 RING_DTYPES = ("float32", "bfloat16", "int32")
 RING_BYTES = (4, 6, 8, 4096, 1 << 20, 64 << 20)
+# sweep cases with x a contiguous view at these byte offsets into a larger
+# buffer: a body that is not 16-byte aligned takes narrower vectors
+RING_OFFSETS = (2, 4, 8)
+# the ring kernel's previous design (the TPU kernel's ring: n - 1
+# forwarding steps with per-span flags, a memset and a cooperative launch
+# a call), measured by this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: at the FSDP gather's shape and at 64 MiB shards over n ranks
+RING_OLD_MS = {"fsdp": 0.16077, 2: 0.19078, 4: 0.74331, 8: 3.27737}
 FSDP_RANKS, FULL_GRAD_RANKS = 8, 4
 # ring against native sums: the ring rounds after each of its n - 1 adds,
 # native once (or n - 1 times in f32), so the two differ by at most
@@ -1026,12 +1035,62 @@ def _ring_library(x):
         .contiguous()
 
 
+def _ring_input(gen, n, nbytes, dt, offset=0):
+    """Random ``[n, 1, nbytes / esz]`` of ``dt``; with ``offset``, a
+    contiguous view that starts ``offset`` bytes into a larger buffer."""
+    import torch
+    esz = torch.empty((), dtype=dt).element_size()
+    src = torch.randint(-2 ** 15, 2 ** 15, (n, 1, nbytes // esz),
+                        generator=gen, device="cuda").to(dt)
+    if not offset:
+        return src
+    buf = torch.empty(n * nbytes + offset, dtype=torch.uint8, device="cuda")
+    x = buf[offset:].view(dt).view(src.shape)
+    x.copy_(src)
+    return x
+
+
+def _ring_registers(x):
+    """The kernel through its register path where the plan takes TMA: the
+    TMA path's yardstick."""
+    import torch
+    from repro_torch.kernels import ring_allgather as rg
+    n = x.shape[0]
+    out = torch.empty((n, n) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device="cuda")
+    p = rg.plan(n, x[0].numel() * x.element_size(), x.data_ptr() % 16,
+                out.data_ptr() % 16,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+    rg.launch(x, out, p._replace(tma=False))
+    return out
+
+
+def _launch_ms(fn, reps: int = 20) -> float:
+    """Device time of a call of ``fn``, a function that launches one
+    kernel: the mean over the kernel events the profiler recorded in
+    ``reps`` calls (a window that drops events reads low in
+    ``device_ms``, not here)."""
+    for _ in range(3):
+        fn()
+    _, kern = trace(lambda: [fn() for _ in range(reps)])
+    require(sum(e.count for e in kern) > 0, "the profiler recorded no "
+            "kernel")
+    return (sum(e.self_device_time_total for e in kern) / 1e3
+            / sum(e.count for e in kern))
+
+
+def _share(bound, ms) -> str:
+    return f"{ms:.5f} ({100 * bound / ms:.1f}% of bound)"
+
+
 def phase_ring_check():
     """The ring kernel against its plain version and the oracle, bit for
-    bit, over the sweep; then timed at the FSDP gather's shape (a
-    qwen2-0.5b layer, bf16, over 8 ranks) and at 64 MiB shards.  Returns
-    the ring's row of the kernels line (without the launch count, which
-    comes from the collectives phase)."""
+    bit, over the sweep (x aligned and at byte offsets into a buffer);
+    one device operation a call; then timed at the FSDP gather's shape (a
+    qwen2-0.5b layer, bf16, over 8 ranks) and at 64 MiB shards, beside
+    its register path, the previous design's times, the plain version and
+    the library copy.  Returns the ring's row of the kernels line (without
+    the launch count, which comes from the collectives phase)."""
     import torch
     from repro_torch.kernels import ring_allgather as rg
     from repro_torch.kernels.ref import ring_allgather_ref
@@ -1044,27 +1103,43 @@ def phase_ring_check():
             dt = getattr(torch, dt_name)
             esz = torch.empty((), dtype=dt).element_size()
             for nbytes in RING_BYTES:
-                if nbytes % esz:
-                    continue
-                x = torch.randint(-2 ** 15, 2 ** 15, (n, 1, nbytes // esz),
-                                  generator=gen, device="cuda").to(dt)
-                out = rg.ring_all_gather(x)
-                torch.cuda.synchronize()
-                ok = (torch.equal(out, rg.ring_all_gather_plain(x))
-                      and torch.equal(out, ring_allgather_ref(x)))
-                require(ok, f"ring kernel differs from its plain version "
-                        f"at n={n} {dt_name} shard {nbytes} B")
-                n_cases += 1
-                del x, out
+                for offset in (0,) + RING_OFFSETS:
+                    if nbytes % esz or offset % esz:
+                        continue
+                    x = _ring_input(gen, n, nbytes, dt, offset)
+                    require(x.data_ptr() % 16 == offset,
+                            f"x starts at {x.data_ptr() % 16} mod 16")
+                    out = rg.ring_all_gather(x)
+                    torch.cuda.synchronize()
+                    ok = (torch.equal(out, rg.ring_all_gather_plain(x))
+                          and torch.equal(out, ring_allgather_ref(x)))
+                    require(ok, f"ring kernel differs from its plain "
+                            f"version at n={n} {dt_name} shard {nbytes} B, "
+                            f"x at byte offset {offset}")
+                    n_cases += 1
+                    del x, out
     log(f"ring check: {n_cases} cases (n {RING_NS}, {RING_DTYPES}, shard "
-        f"bytes {RING_BYTES}) equal to the plain version and the oracle "
-        f"bit for bit (torch.equal)")
+        f"bytes {RING_BYTES}, x aligned and at byte offsets "
+        f"{RING_OFFSETS}) equal to the plain version and the oracle bit "
+        f"for bit (torch.equal)")
 
     # the FSDP gather's shape: one layer's 14,912,384 bf16 params over 8
     n, elems = FSDP_RANKS, QWEN_LAYER_PARAMS // FSDP_RANKS
     x = torch.randn((n, 1, elems), generator=gen, device="cuda").to(
         torch.bfloat16)
     launch = lambda: rg.ring_all_gather(x)
+    # one device operation a call; a profiler window that recorded
+    # nothing is tried again
+    for _ in range(5):
+        _, kern = trace(launch)
+        if kern:
+            break
+    ops = [(_kernel_name(e.key), e.count) for e in kern]
+    require(ops == [("broadcast_tma_kernel", 1)],
+            f"one ring call made the device operations {ops}")
+    log(f"ring device operations a call: {ops} (the previous design: a "
+        f"memset and the kernel)")
+    bound = ring_bound_ms(n, elems * 2)
     row = {
         "name": "ring_allgather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ring_allgather.cu",
@@ -1073,28 +1148,37 @@ def phase_ring_check():
         "max_abs_err": (launch().float()
                         - rg.ring_all_gather_plain(x).float()).abs().max()
         .item(),
-        "ms": device_ms(launch),
+        "ms": _launch_ms(launch),
         "plain_ms": device_ms(lambda: rg.ring_all_gather_plain(x)),
-        "bound_ms": ring_bound_ms(n, elems * 2),
+        "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": device_ms(lambda: _ring_library(x)),
     }
     log(f"ring device time at the FSDP gather's shape [{n}, 1, {elems}] "
-        f"bf16 (ms): kernel {row['ms']:.5f}, plain {row['plain_ms']:.5f}, "
-        f"library copy {row['library_ms']:.5f}, bound {row['bound_ms']:.6f}"
-        f" (bytes); kernel with host launch gaps (CUDA events) "
-        f"{cuda_ms(launch):.5f}")
+        f"bf16 (ms): kernel {_share(bound, row['ms'])}, register path "
+        f"{_share(bound, _launch_ms(lambda: _ring_registers(x)))}, "
+        f"previous design {_share(bound, RING_OLD_MS['fsdp'])}, plain "
+        f"{row['plain_ms']:.5f}, library copy "
+        f"{_share(bound, row['library_ms'])}, bound {bound:.6f} (bytes); "
+        f"kernel with host launch gaps (CUDA events) {cuda_ms(launch):.5f}")
+    for offset in (2, 8):
+        y = _ring_input(gen, n, elems * 2, torch.bfloat16, offset)
+        log(f"ring device time at the FSDP gather's shape, x at byte "
+            f"offset {offset} ({offset}-byte vectors) (ms): kernel "
+            f"{_share(bound, _launch_ms(lambda: rg.ring_all_gather(y)))}")
+        del y
     del x
     for n in (2, 4, 8):
         x = torch.zeros((n, 1, (64 << 20) // 2), dtype=torch.bfloat16,
                         device="cuda")
-        k_ms = device_ms(lambda: rg.ring_all_gather(x), reps=10)
-        l_ms = device_ms(lambda: _ring_library(x), reps=10)
         bound = ring_bound_ms(n, 64 << 20)
+        k_ms = _launch_ms(lambda: rg.ring_all_gather(x), reps=10)
+        r_ms = _launch_ms(lambda: _ring_registers(x), reps=10)
+        l_ms = device_ms(lambda: _ring_library(x), reps=10)
         log(f"ring device time at n={n}, 64 MiB shards (ms): kernel "
-            f"{k_ms:.5f} ({100 * bound / k_ms:.1f}% of bound), library "
-            f"copy {l_ms:.5f} ({100 * bound / l_ms:.1f}% of bound), bound "
-            f"{bound:.6f}")
+            f"{_share(bound, k_ms)}, register path {_share(bound, r_ms)}, "
+            f"previous design {_share(bound, RING_OLD_MS[n])}, library "
+            f"copy {_share(bound, l_ms)}, bound {bound:.6f}")
         del x
     log(f"ring checks and timing launched the kernel "
         f"{rg.launches - launches0} times (not counted below)")
@@ -1218,6 +1302,14 @@ def phase_collectives():
             f"layers: ring "
             f"{lcx_ms['ring']:.3f}, native {lcx_ms['native']:.3f}")
         del gathered
+        # the same gather again, now that the allocator holds the freed
+        # outputs: the first run's host time includes their cudaMalloc
+        _, warm_ms = _host_ms(lambda: [ops.ring_all_gather(
+            s, "x", axis_size=n) for s in shards])
+        log(f"fsdp gather, allocator warm: {cfg.n_layers} layers through "
+            f"ops.ring_all_gather: host {warm_ms:.3f} ms "
+            f"({warm_ms / cfg.n_layers:.4f} ms per layer; first run "
+            f"{ms:.3f} ms)")
 
         gen = torch.Generator(device="cuda").manual_seed(3)
         for dt in (torch.float32, torch.bfloat16):

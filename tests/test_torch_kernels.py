@@ -487,6 +487,173 @@ def test_ring_all_gather_op_checks_the_axis():
         tops.ring_all_gather(x, "y", axis_size=4)
 
 
+# The CUDA kernel's plan (``tring.plan``): chip_smoke.py's shard sizes,
+# odd ones, and starts misaligned by 2, 4 and 8 bytes.  The kernel walks
+# the plan's tiles (vectors) and each shard's head and tail (bytes); see
+# csrc/ring_allgather.cu.
+RING_SHARD_BYTES = (1, 3, 4, 6, 8, 17, 4096, 4097, 1 << 20, 64 << 20)
+RING_MODS = [(0, 0), (2, 0), (4, 0), (8, 0), (0, 2), (0, 8), (2, 2),
+             (4, 4), (8, 8), (2, 8), (8, 4)]
+SMS = 132                                      # an H100 SXM's SMs
+
+
+def _ring_walk(p, n):
+    """The kernel's walk along plan ``p``, as ``(i, lo, hi, vec)``: shard
+    i's bytes ``[lo, hi)`` go to ``out[r, i]`` for every r, in vectors of
+    ``vec`` bytes; tiles first, then the byte path's heads and tails."""
+    for t in range(n * p.tiles_per_shard):
+        i, k = divmod(t, p.tiles_per_shard)
+        lo = p.head + k * p.tile
+        yield i, lo, min(lo + p.tile, p.head + p.body), p.vec
+    for i in range(n):
+        yield i, 0, p.head, 1
+        yield i, p.head + p.body, p.head + p.body + p.tail, 1
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("shard", RING_SHARD_BYTES)
+def test_ring_plan_covers_every_byte_once(n, shard):
+    """Every byte of every destination ``out[r, i]`` is written exactly
+    once, every vector is aligned in ``x`` and in each ``out[r, i]``, a
+    16-byte body goes by TMA, and no block gets more than one tile."""
+    for x_mod, out_mod in RING_MODS:
+        p = tring.plan(n, shard, x_mod, out_mod, SMS)
+        assert p.head + p.body + p.tail == shard
+        assert p.tma == (p.vec == 16) and p.tile % tring.TILE_ALIGN == 0
+        assert 1 <= p.grid <= tring.BLOCKS_PER_SM * SMS
+        assert n * p.tiles_per_shard <= p.grid or p.tiles_per_shard == 1
+        ranges = {i: [] for i in range(n)}
+        for i, lo, hi, vec in _ring_walk(p, n):
+            if lo == hi:
+                continue
+            assert 0 <= lo < hi <= shard and (hi - lo) % vec == 0
+            assert (x_mod + i * shard + lo) % vec == 0
+            assert all((out_mod + (r * n + i) * shard + lo) % vec == 0
+                       for r in range(n))
+            ranges[i].append((lo, hi))
+        for i in range(n):
+            covered = sorted(ranges[i])
+            assert covered[0][0] == 0 and covered[-1][1] == shard
+            assert all(a[1] == b[0] for a, b in zip(covered, covered[1:]))
+
+
+def test_ring_plan_fsdp_shape_goes_by_tma():
+    """The FSDP gather's shape (a qwen2-0.5b layer of 14,912,384 bf16
+    params over 8 ranks) takes 16-byte vectors by TMA, with no byte path,
+    on one wave of equal tiles."""
+    p = tring.plan(8, 14_912_384 // 8 * 2, 0, 0, SMS)
+    assert p.tma and p.vec == 16 and p.head == p.tail == 0
+    assert 8 * p.tiles_per_shard == p.grid <= tring.BLOCKS_PER_SM * SMS
+    assert tring.plan(8, 14_912_384 // 8 * 2, 2, 0, SMS).vec == 2
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype", ["uint8", "bfloat16", "float32", "int32"])
+def test_ring_walk_matches_plain(n, dtype):
+    """The kernel's walk along its plan, emulated by byte slicing of CPU
+    tensors (x and out at offsets into larger buffers), equals
+    ``ring_all_gather_plain`` bit for bit."""
+    dt = getattr(torch, dtype)
+    esz = torch.empty((), dtype=dt).element_size()
+    rng = np.random.default_rng(n)
+    for shard in (1, 3, 4, 6, 8, 17, 4096, 4097, 12_304):
+        if shard % esz:
+            continue
+        for x_off, out_off in ((0, 0), (2, 0), (4, 0), (8, 0), (8, 4),
+                               (2, 2)):
+            if x_off % esz or out_off % esz:
+                continue
+            xbuf = torch.from_numpy(rng.integers(
+                0, 256, n * shard + 64, dtype=np.uint8))
+            base = -xbuf.data_ptr() % 16     # the buffer's 16-byte start
+            xb = xbuf[base + x_off:base + x_off + n * shard]
+            obuf = torch.zeros(n * n * shard + 64, dtype=torch.uint8)
+            ob = obuf[-obuf.data_ptr() % 16 + out_off:][:n * n * shard]
+            p = tring.plan(n, shard, xb.data_ptr() % 16, ob.data_ptr() % 16,
+                           SMS)
+            for i, lo, hi, _ in _ring_walk(p, n):
+                for r in range(n):
+                    dst = (r * n + i) * shard
+                    ob[dst + lo:dst + hi] = xb[i * shard + lo:i * shard + hi]
+            x = xb.view(dt).reshape(n, 1, -1)
+            want = tring.ring_all_gather_plain(x)
+            got = ob.view(dt).reshape(want.shape)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+class _AsCuda:
+    """A CPU tensor that reports a CUDA device, so that the wrapper's CUDA
+    branch runs on the CPU up to the kernel call."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda", 0)
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+    def __getitem__(self, k):
+        return self._t[k]
+
+
+class _TorchOnCpu:
+    """``torch`` as the wrapper sees it: ``empty`` recorded and made on
+    the CPU, ``cuda.device`` and the current stream stubbed."""
+
+    def __init__(self):
+        self.empty_calls = []
+        self.cuda = type("cuda", (), {
+            "device": staticmethod(lambda d: __import__(
+                "contextlib").nullcontext()),
+            "current_stream": staticmethod(lambda: type(
+                "stream", (), {"cuda_stream": 0})())})
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *shape, dtype=None, device=None):
+        self.empty_calls.append((tuple(*shape), dtype, device))
+        return torch.empty(*shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("n,rest,dtype", [(8, (1000,), "bfloat16"),
+                                          (3, (5, 3), "float32"),
+                                          (2, (3,), "uint8")])
+def test_ring_wrapper_allocates_only_out(monkeypatch, n, rest, dtype):
+    """On a CUDA tensor the wrapper allocates ``out`` and nothing else (no
+    flag buffer), and hands the kernel one plan, once."""
+    fake = _TorchOnCpu()
+    calls = []
+    monkeypatch.setattr(tring, "torch", fake)
+    monkeypatch.setattr(tring, "launches", 0)
+    monkeypatch.setattr(tring, "_sm_count", lambda device: SMS)
+    monkeypatch.setattr(tring, "_kernel",
+                        lambda: lambda *a: calls.append(a) or 0)
+    x = torch.zeros((n, 1) + rest, dtype=getattr(torch, dtype))
+    out = tring.ring_all_gather(_AsCuda(x))
+    assert fake.empty_calls == [((n, n) + rest, x.dtype,
+                                 torch.device("cuda", 0))]
+    assert tuple(out.shape) == (n, n) + rest and tring.launches == 1
+    shard = x[0].numel() * x.element_size()
+    p = tring.plan(n, shard, x.data_ptr() % 16, out.data_ptr() % 16, SMS)
+    assert calls == [(x.data_ptr(), out.data_ptr(), n, shard, p.vec,
+                      p.head, p.body, p.tile, p.grid, int(p.tma), 0)]
+    assert not hasattr(tring, "MAX_BLOCKS_PER_RANK")
+
+
+def test_ring_wrapper_raises_on_a_failed_launch_or_strided_x(monkeypatch):
+    monkeypatch.setattr(tring, "torch", _TorchOnCpu())
+    monkeypatch.setattr(tring, "launches", 0)
+    monkeypatch.setattr(tring, "_sm_count", lambda device: SMS)
+    monkeypatch.setattr(tring, "_kernel", lambda: lambda *a: 1)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tring.ring_all_gather(_AsCuda(torch.zeros((4, 1, 8))))
+    strided = torch.zeros((4, 1, 8, 2)).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tring.ring_all_gather(_AsCuda(strided))
+    assert tring.launches == 0
+
+
 # tests/test_kernels.py's cases, plus ragged ones (C, d, f not multiples
 # of anything: the Pallas wrapper halves its blocks to divisors, the CUDA
 # kernel masks the edges)
