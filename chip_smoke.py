@@ -55,7 +55,29 @@ non-zero:
    ``ServingEngine(failover=True)`` at full qwen2-0.5b width, with the
    serving device frozen after the first 8 admissions while hand-off
    transfers are in flight; the heartbeat migrates them, every request
-   finishes, and the tokens equal phase 4's.
+   finishes, and the tokens equal phase 4's;
+12. the other reference architectures at full width in bf16, one at a
+   time, through the same serve run as phase 4 (launch counts, profile):
+   ``deepseek-v3-671b`` cut to 5 of 61 layers (its 3 dense prefix layers
+   and 2 MoE layers, MLA attention, 256 experts: the grouped matmul 3
+   times per MoE layer per prefill and tick, flash never),
+   ``internlm2-20b`` (48 layers, flash once per layer and prefill),
+   ``starcoder2-7b`` (32 layers; windowed, so flash never) and
+   ``command-r-plus-104b`` cut to 8 of 64 layers;
+13. the f32 greedy check of phase 5 for each of them, cut in depth
+   (deepseek-v3 to 2 layers with capacity factor E/k, which holds the
+   absorbed MLA decode against the up-projected prefill; starcoder2's
+   window cut to 32 rows so that prompt and decode cross it);
+14. the frontends: ``llava-next-mistral-7b`` at full width, a prefill of
+   576 patch embeddings ahead of a 64-token prompt and 16 decode steps,
+   and in f32 at 4 layers against token-by-token
+   ``apply_model(frontend_embeds=)``; ``hubert-xlarge`` at full width,
+   ``apply_model`` on 1024 frames through the non-causal flash kernel,
+   and in f32 at 4 layers against plain attention.
+
+Phase 3 also checks flash at internlm2-20b's, command-r-plus-104b's,
+llava's and hubert's attention shapes (head dim 80, not causal) and the
+grouped matmul at deepseek-v3's expert shape (256 experts, 7168 <-> 2048).
 
 Output: one line per check, then a ``{"kernels": [...]}`` JSON line
 (flash attention, SSD scan, ring all-gather, grouped matmul), the card's
@@ -132,6 +154,27 @@ GMM_CAPS = (8, 16, 24, 40)             # decode (8 slots) and prefills
 GMM_RAGGED = ((4, 24, 80, 96), (3, 5, 100, 7), (2, 130, 33, 65))
 EP_RANKS, EP_TOKENS = 8, 512           # C = 40 a rank, ep * C = 320
 MOE_GREEDY_LAYERS = 4
+# the flash kernel at the attention shapes of the dense, VLM and audio
+# paths (heads, KV heads and head dim from each config; causal but hubert)
+FLASH_ARCHS = ("internlm2-20b", "command-r-plus-104b",
+               "llava-next-mistral-7b", "hubert-xlarge")
+# deepseek-v3-671b's expert capacities: decode (8 slots), the largest
+# serve prefill (498 tokens at capacity factor 1.25)
+DSV3_CAPS = (8, 24)
+# depth cuts of the full-width paths that do not fit one card whole: the
+# layers kept (DeepSeek-V3: its 3 dense prefix layers and 2 MoE layers)
+DSV3_SERVE_LAYERS, CMDR_SERVE_LAYERS = 5, 8
+# the f32 greedy checks' cuts: depth, and starcoder2's window cut so that
+# the 61-token prompt and its 16 new tokens cross it
+GREEDY_CUTS = {
+    "deepseek-v3-671b": dict(n_layers=2, first_k_dense=1),
+    "internlm2-20b": dict(n_layers=4),
+    "starcoder2-7b": dict(n_layers=4, sliding_window=32),
+    "command-r-plus-104b": dict(n_layers=2),
+}
+# the VLM frontend: 576 patch embeddings ahead of a 64-token prompt, 16 new
+# tokens; the audio encoder: 1024 frames.  Their f32 checks keep 4 layers
+LLAVA_PROMPT, LLAVA_NEW, HUBERT_FRAMES, FRONTEND_CHECK_LAYERS = 64, 16, 1024, 4
 
 
 def log(*a) -> None:
@@ -190,13 +233,28 @@ def trace(fn):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _events(fn):
+    """The card's kernel events of one traced run of ``fn``; a window that
+    recorded none is traced again, up to three times, then fails."""
+    for _ in range(3):
+        _, kern = trace(fn)
+        if sum(e.count for e in kern):
+            return kern
+    raise AssertionError("the profiler recorded no kernel in three windows")
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time per call: the card's kernel time over ``reps``
-    calls, without the host's launch gaps."""
+    """Mean device time per call, without the host's launch gaps: the
+    kernel time the profiler recorded over ``reps`` calls, divided by the
+    calls it recorded, which are its kernel events over the events of one
+    call.  A window that drops events then reads the mean of those it
+    kept, not low or zero; one that recorded none fails."""
     for _ in range(warmup):
         fn()
-    _, kern = trace(lambda: [fn() for _ in range(reps)])
-    return sum(e.self_device_time_total for e in kern) / 1e3 / reps
+    per_call = sum(e.count for e in _events(fn))
+    kern = _events(lambda: [fn() for _ in range(reps)])
+    return (sum(e.self_device_time_total for e in kern) / 1e3 * per_call
+            / sum(e.count for e in kern))
 
 
 def flash_bound_ms(hq, hkv, sq, sk, d, causal, dtype_name) -> tuple:
@@ -293,23 +351,24 @@ def _qkv(gen, b, hq, hkv, sq, sk, dk, dv, dtype, seq_major=False):
     return mk(b, hq, sq, dk), mk(b, hkv, sk, dk), mk(b, hkv, sk, dv)
 
 
-def _flash_times(gen, hq, hkv, d, lens):
-    """Mean device ms per call over ``lens`` (causal, B = 1, bf16): kernel,
-    plain version, SDPA, the bound, and the kernel with host launch gaps;
-    and what bounds it."""
+def _flash_times(gen, hq, hkv, d, lens, causal=True):
+    """Mean device ms per call over ``lens`` (B = 1, bf16): kernel, plain
+    version, SDPA, the bound, and the kernel with host launch gaps; and
+    what bounds it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = []
     for s in lens:
         q, k, v = _qkv(gen, 1, hq, hkv, s, s, d, d, torch.bfloat16)
-        launch = lambda: fa.flash_attention(q, k, v, causal=True)
+        launch = lambda: fa.flash_attention(q, k, v, causal=causal)
         rows.append((
             device_ms(launch),
-            device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+            device_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                       causal=causal)),
             device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)),
-            flash_bound_ms(hq, hkv, s, s, d, True, "bfloat16"),
+                q, k, v, is_causal=causal, enable_gqa=True)),
+            flash_bound_ms(hq, hkv, s, s, d, causal, "bfloat16"),
             cuda_ms(launch)))
     n = len(rows)
     t_ops = sum(r[3][0] for r in rows)
@@ -324,9 +383,13 @@ def phase_kernel_check(serve_lens, moe_lens):
     """Returns the flash kernel's row of the kernels line (without the
     launch count, which comes from the serve phase): qwen2-0.5b's shape
     over its serve prompt lengths.  Also checks and times the kernel at
-    qwen3-moe-30b-a3b's attention shape over ``moe_lens``."""
+    qwen3-moe-30b-a3b's attention shape over ``moe_lens``, at
+    internlm2-20b's and command-r-plus-104b's over ``serve_lens``, at
+    llava-next-mistral-7b's over its 576 patches and 64 tokens, and at
+    hubert-xlarge's (head dim 80, not causal) over 1024 frames."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -347,6 +410,25 @@ def phase_kernel_check(serve_lens, moe_lens):
     strided += [(1, 32, 4, s, s, 128, 128, True, bf16) for s in (61, 441)]
     strided += [(1, 14, 2, 100, 100, 64, 64, True, f32),
                 (1, 32, 4, 61, 61, 128, 128, True, f32)]
+    # the dense, VLM and audio paths' shapes: their serve prompts, the
+    # VLM's 576 + 64 rows, the encoder's 1024 frames, and the f32 checks'
+    arch_shape = {}
+    for arch in FLASH_ARCHS:
+        c = get_config(arch)
+        arch_shape[arch] = (c.n_heads, c.n_kv_heads, c.head_dim, c.causal)
+    for arch in ("internlm2-20b", "command-r-plus-104b"):
+        hq, hkv, d, _ = arch_shape[arch]
+        cases += [(1, hq, hkv, s, s, d, d, True, bf16) for s in (7, 100, 512)]
+        strided += [(1, hq, hkv, s, s, d, d, True, bf16) for s in (61, 441)]
+        strided += [(1, hq, hkv, 61, 61, d, d, True, f32)]
+    hq, hkv, d, _ = arch_shape["llava-next-mistral-7b"]
+    vlm_len = get_config("llava-next-mistral-7b").frontend_len + LLAVA_PROMPT
+    strided += [(1, hq, hkv, vlm_len, vlm_len, d, d, True, dt)
+                for dt in (bf16, f32)]
+    hq, hkv, d, causal = arch_shape["hubert-xlarge"]
+    cases += [(1, hq, hkv, s, s, d, d, causal, bf16) for s in (100, 1024)]
+    strided += [(1, hq, hkv, HUBERT_FRAMES, HUBERT_FRAMES, d, d, causal, dt)
+                for dt in (bf16, f32)]
     launches0 = fa.launches
     path_err = 0.0
     for case, seq_major in ([(c, False) for c in cases]
@@ -393,6 +475,21 @@ def phase_kernel_check(serve_lens, moe_lens):
         f"per call, ms): kernel {k_ms:.5f}, plain {p_ms:.5f}, sdpa "
         f"{l_ms:.5f}, bound {b_ms:.6f} ({bound_by}); kernel with host "
         f"launch gaps (CUDA events) {host:.5f}")
+    for arch, lens in (("internlm2-20b", serve_lens),
+                       ("command-r-plus-104b", serve_lens),
+                       ("llava-next-mistral-7b", [vlm_len]),
+                       ("hubert-xlarge", [HUBERT_FRAMES])):
+        hq, hkv, d, causal = arch_shape[arch]
+        k_ms, p_ms, l_ms, b_ms, host, bound_by = _flash_times(
+            gen, hq, hkv, d, lens, causal)
+        where = (f"S={lens[0]}" if len(lens) == 1
+                 else f"the {len(lens)} serve prompt lengths")
+        log(f"flash device time at {arch}'s attention shape (Hq={hq}, "
+            f"Hkv={hkv}, D={d}, causal={causal}) over {where} "
+            f"(mean per call, ms): kernel {k_ms:.5f} ({k_ms / l_ms:.2f}x "
+            f"sdpa), plain {p_ms:.5f}, sdpa {l_ms:.5f}, bound {b_ms:.6f} "
+            f"({bound_by}); kernel with host launch gaps (CUDA events) "
+            f"{host:.5f}")
     q, k, v = _qkv(gen, 1, 14, 2, 1024, 1024, 64, 64, bf16)
     k_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
     l_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -547,10 +644,10 @@ def phase_ssd_check(serve_lens):
         reps = 20
         for _ in range(3):
             ssd.ssd_scan(*args)
-        _, kern = trace(lambda: [ssd.ssd_scan(*args) for _ in range(reps)])
+        kern = _events(lambda: [ssd.ssd_scan(*args) for _ in range(reps)])
         parts = ", ".join(
             f"{_kernel_name(e.key)} "
-            f"{e.self_device_time_total / 1e3 / reps:.5f} (x{e.count})"
+            f"{e.self_device_time_total / 1e3 / e.count:.5f} (x{e.count})"
             for e in kern)
         log(f"ssd device time a launch at S={s}, the mixer layout (ms, mean "
             f"of {reps} calls): {parts}")
@@ -564,8 +661,8 @@ def _gmm_case(gen, e, c, d, f, dtype):
     the init's 1/sqrt(d) scale."""
     import torch
     x = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
-    w = (torch.randn((e, d, f), generator=gen, device="cuda")
-         * d ** -0.5).to(dtype)
+    w = torch.randn((e, d, f), generator=gen, device="cuda").mul_(
+        d ** -0.5).to(dtype)
     return x, w
 
 
@@ -581,16 +678,77 @@ def _gmm_err(out, ref, x, w):
     return err.max().item(), ok
 
 
-def phase_gmm_check(prefill_caps, ep_cap):
+def _gmm_check(gen, e, c, d, f, dtype):
+    """One grouped matmul against its plain version; returns its error."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gm
+    x, w = _gmm_case(gen, e, c, d, f, dtype)
+    out = gm.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    err, ok = _gmm_err(out, gm.moe_gmm_plain(x, w), x, w)
+    log(f"gmm check E={e} C={c} d={d} f={f} {str(dtype)[6:]}: "
+        f"max_abs_err={err:.3e} (bound 2 d u sum|x||w| + "
+        f"{GMM_ROUND[str(dtype)[6:]]} |out|) {'ok' if ok else 'FAIL'}")
+    require(ok, "grouped-matmul kernel disagrees with its plain version")
+    return err
+
+
+def _gmm_rows_independent(gen, e, c, n, d, f):
+    """Rows do not depend on the launch: each ``c``-row slice of one
+    bf16 ``[e, n * c, d]`` launch equals its own launch bit for bit."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gm
+    x, w = _gmm_case(gen, e, n * c, d, f, torch.bfloat16)
+    big = gm.moe_gmm(x, w)
+    require(all(torch.equal(big[:, c * r:c * (r + 1)], gm.moe_gmm(
+        x[:, c * r:c * (r + 1)].contiguous(), w))
+        for r in range(n)), "a row of the grouped matmul depends on the "
+        "other rows of its launch")
+    log(f"gmm check: each {c}-row slice of one [{e}, {n * c}, {d}] bf16 "
+        f"launch equals its own launch bit for bit")
+
+
+def _gmm_layer_times(gen, label, e, d, f, caps):
+    """{C: (kernel, plain, bmm, operations bound, bytes bound)} ms summed
+    over the three bf16 projections of one MoE layer (gate and up
+    [d -> f], down [f -> d]) at each capacity of ``caps``."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gm
+    times = {}
+    for c in caps:
+        t = [0.0] * 5
+        for di, fo, n in ((d, f, 2), (f, d, 1)):
+            x, w = _gmm_case(gen, e, c, di, fo, torch.bfloat16)
+            row = (device_ms(lambda: gm.moe_gmm(x, w)),
+                   device_ms(lambda: gm.moe_gmm_plain(x, w)),
+                   device_ms(lambda: torch.bmm(x, w)),
+                   *gmm_bound_ms(e, c, di, fo, "bfloat16"))
+            t = [a + n * b for a, b in zip(t, row)]
+            del x, w
+        times[c] = tuple(t)
+        k_ms, p_ms, l_ms, ops, nbytes = t
+        bound = max(ops, nbytes)
+        log(f"gmm device time, one {label} MoE layer's 3 projections (E={e},"
+            f" d={d}, f={f}) at C={c} bf16 (ms): kernel {k_ms:.5f} "
+            f"({100 * bound / k_ms:.1f}% of bound), plain {p_ms:.5f}, "
+            f"torch.bmm {l_ms:.5f}, bound {bound:.6f} "
+            f"({'operations' if ops >= nbytes else 'bytes'})")
+    return times
+
+
+def phase_gmm_check(prefill_caps, ep_cap, ds_caps):
     """The grouped-matmul kernel against its plain version at the serving
     shapes of qwen3-moe-30b-a3b (decode C = 8, the prefills' capacities
     ``prefill_caps``, the EP phase's ep * C = 8 * ``ep_cap``; gate/up
     [2048 -> 768] and down [768 -> 2048]) and ragged ones, in bf16 and
-    f32; then timed at each serving capacity.  Returns {C: (kernel, plain,
-    bmm, operations bound, bytes bound)} ms summed over the three
-    projections of a layer, and the largest bf16 error at the serving
-    shapes."""
+    f32, and at deepseek-v3-671b's (256 experts, [7168 -> 2048] and back,
+    C = 8 and 24); then timed at each serving capacity of both (``ds_caps``
+    for deepseek-v3).  Returns qwen3-moe's {C: (kernel, plain, bmm,
+    operations bound, bytes bound)} ms summed over the three projections
+    of a layer, the largest bf16 error at its serving shapes, and
+    deepseek-v3's times."""
     import torch
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import moe_gmm as gm
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -601,53 +759,26 @@ def phase_gmm_check(prefill_caps, ep_cap):
     path_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for (e, c, d, f) in shapes + list(GMM_RAGGED):
-            x, w = _gmm_case(gen, e, c, d, f, dtype)
-            out = gm.moe_gmm(x, w)
-            torch.cuda.synchronize()
-            err, ok = _gmm_err(out, gm.moe_gmm_plain(x, w), x, w)
-            log(f"gmm check E={e} C={c} d={d} f={f} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} (bound 2 d u sum|x||w| + "
-                f"{GMM_ROUND[str(dtype)[6:]]} |out|) "
-                f"{'ok' if ok else 'FAIL'}")
-            require(ok, "grouped-matmul kernel disagrees with its plain "
-                    "version")
+            err = _gmm_check(gen, e, c, d, f, dtype)
             if dtype == torch.bfloat16 and e == MOE_E:
                 path_err = max(path_err, err)
-            del x, w, out
-    # rows do not depend on the launch: the EP launch's [E, ep*C, d] rows
-    # equal each rank's own [E, C, d] launch bit for bit
-    c = ep_cap
-    x, w = _gmm_case(gen, MOE_E, EP_RANKS * c, MOE_D, MOE_F, torch.bfloat16)
-    big = gm.moe_gmm(x, w)
-    require(all(torch.equal(big[:, c * r:c * (r + 1)], gm.moe_gmm(
-        x[:, c * r:c * (r + 1)].contiguous(), w))
-        for r in range(EP_RANKS)), "a row of the grouped matmul depends on "
-        "the other rows of its launch")
-    log(f"gmm check: each {c}-row slice of one [{MOE_E}, {EP_RANKS * c}, "
-        f"{MOE_D}] bf16 launch equals its own launch bit for bit")
-    del x, w, big
+    _gmm_rows_independent(gen, MOE_E, ep_cap, EP_RANKS, MOE_D, MOE_F)
+    ds = get_config("deepseek-v3-671b")
+    ds_e, ds_d, ds_f = ds.n_experts, ds.d_model, ds.moe_d_ff
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in DSV3_CAPS:
+            for d, f in ((ds_d, ds_f), (ds_f, ds_d)):
+                _gmm_check(gen, ds_e, c, d, f, dtype)
+    _gmm_rows_independent(gen, ds_e, DSV3_CAPS[0],
+                          DSV3_CAPS[1] // DSV3_CAPS[0], ds_d, ds_f)
 
-    times = {}
-    for c in caps:
-        t = [0.0] * 5
-        for d, f, n in ((MOE_D, MOE_F, 2), (MOE_F, MOE_D, 1)):
-            x, w = _gmm_case(gen, MOE_E, c, d, f, torch.bfloat16)
-            row = (device_ms(lambda: gm.moe_gmm(x, w)),
-                   device_ms(lambda: gm.moe_gmm_plain(x, w)),
-                   device_ms(lambda: torch.bmm(x, w)),
-                   *gmm_bound_ms(MOE_E, c, d, f, "bfloat16"))
-            t = [a + n * b for a, b in zip(t, row)]
-            del x, w
-        times[c] = tuple(t)
-        k_ms, p_ms, l_ms, ops, nbytes = t
-        bound = max(ops, nbytes)
-        log(f"gmm device time, one MoE layer's 3 projections at C={c} "
-            f"bf16 (ms): kernel {k_ms:.5f} ({100 * bound / k_ms:.1f}% of "
-            f"bound), plain {p_ms:.5f}, torch.bmm {l_ms:.5f}, bound "
-            f"{bound:.6f} ({'operations' if ops >= nbytes else 'bytes'})")
+    times = _gmm_layer_times(gen, "qwen3-moe-30b-a3b", MOE_E, MOE_D, MOE_F,
+                             caps)
+    ds_times = _gmm_layer_times(gen, "deepseek-v3-671b", ds_e, ds_d, ds_f,
+                                sorted(set(ds_caps)))
     log(f"gmm checks and timing launched the kernel "
         f"{gm.launches - launches0} times (not counted below)")
-    return times, path_err
+    return times, path_err, ds_times
 
 
 def gmm_row(times, path_err, prefill_caps, ticks, launches):
@@ -714,12 +845,15 @@ def phase_profile(cfg, params, kernels, prompts):
 
 
 def expected_launches(cfg, prefills, ticks=0) -> dict:
-    """Each kernel's launches in a serve run: flash and SSD once per
-    prefill and layer of their kind (decode attention and Mamba decode
-    are plain PyTorch, as in the reference), flash only for a config
-    without a sliding window (``model_kernels`` gives a windowed config
-    no flash hook); the grouped matmul once per expert projection (3) of
-    every MoE layer in every prefill and decode tick."""
+    """Each kernel's launches in a run of ``prefills`` prefills (or
+    full-sequence forwards: an encoder's ``apply_model`` is one) and
+    ``ticks`` decode ticks: flash and SSD once per prefill and layer of
+    their kind (decode attention and Mamba decode are plain PyTorch, as in
+    the reference), flash only for a config without a sliding window
+    (``model_kernels`` gives a windowed config no flash hook) and never in
+    an MLA layer (the reference gives MLA no flash hook), causal or not;
+    the grouped matmul once per expert projection (3) of every MoE layer
+    in every prefill and decode tick."""
     plan = cfg.layer_plan()
     flash = 0 if cfg.sliding_window else 1
     return {"flash_attention": flash * prefills * sum(l.mixer == "attn"
@@ -730,9 +864,39 @@ def expected_launches(cfg, prefills, ticks=0) -> dict:
                                                     for l in plan)}
 
 
-def phase_serve(arch, prompts):
-    """Serve ``prompts`` at ``arch``'s full width; returns the launch
-    counts of the run and each request's tokens."""
+class _RecordRoutes:
+    """Record the expert ids of every decode tick's routing (``x`` of
+    ``n_slots`` rows) in the block, without a host sync; ``distinct()``
+    counts the experts each MoE layer's tick chose."""
+
+    def __init__(self, n_slots):
+        self.n_slots, self.ids = n_slots, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+
+        def route(cfg, router_p, x):
+            out = self._route(cfg, router_p, x)
+            if x.shape[0] == self.n_slots:
+                self.ids.append(out[0])
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def distinct(self):
+        return [int(i.unique().numel()) for i in self.ids]
+
+
+def phase_serve(arch, prompts, cut=None, **overrides):
+    """Serve ``prompts`` at ``arch``'s full width; ``overrides`` cut the
+    config's depth where the whole model does not fit the card, and
+    ``cut`` says so.  Returns the launch counts of the run, each
+    request's tokens and the engine's stats."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import model_kernels
@@ -740,11 +904,15 @@ def phase_serve(arch, prompts):
     from repro_torch.models.common import param_bytes, param_count
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **overrides)
     torch.cuda.reset_peak_memory_stats()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         device="cuda")
-    log(f"serve: {cfg.name} full width, {cfg.n_layers} layers, "
+    depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers
+             else f"cut to {cfg.n_layers} of {full.n_layers} layers "
+                  f"({cut})")
+    log(f"serve: {cfg.name} full width, {depth}, "
         f"{param_count(params)} params, {param_bytes(params)} bytes, "
         f"{str(cfg.dtype)[6:]}")
     kernels = model_kernels(cfg)
@@ -764,10 +932,11 @@ def phase_serve(arch, prompts):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p))
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
+    with _RecordRoutes(SERVE_SLOTS) as routes:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p))
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
 
@@ -777,8 +946,9 @@ def phase_serve(arch, prompts):
     require(all(len(r.output) == SERVE_NEW for r in done),
             f"output lengths {[len(r.output) for r in done]}")
     require(eng.stats["prefills"] == len(prompts), f"stats {eng.stats}")
+    # only a windowed config (no flash hook) may serve with no kernel
     want = expected_launches(cfg, eng.stats["prefills"], eng.stats["ticks"])
-    require(counts == want and any(counts.values()),
+    require(counts == want and (any(want.values()) or cfg.sliding_window),
             f"launches {counts}, expected {want}, stats {eng.stats}")
     tasks = list(eng._executor.graph.tasks.values())
     admitted = {t.name for t in tasks
@@ -800,6 +970,17 @@ def phase_serve(arch, prompts):
         f"launches {counts} for {eng.stats['prefills']} prefills and "
         f"{eng.stats['ticks']} decode ticks of {cfg.n_layers} layers; "
         f"card {smi()}")
+    moe_layers = sum(l.ffn == "moe" for l in cfg.layer_plan())
+    if moe_layers:
+        chosen = routes.distinct()
+        read = 3 * moe_layers * cfg.n_experts * cfg.d_model * cfg.moe_d_ff \
+            * torch.empty((), dtype=cfg.param_dtype).element_size()
+        log(f"serve: {cfg.name} decode ticks chose {min(chosen)}-"
+            f"{max(chosen)} of {cfg.n_experts} experts a MoE layer (mean "
+            f"{sum(chosen) / len(chosen):.1f} over {len(chosen)} layer "
+            f"ticks; at most {SERVE_SLOTS} slots x top-"
+            f"{cfg.n_experts_per_tok}); the grouped matmul reads all "
+            f"{cfg.n_experts} experts' weights, {read} bytes a tick")
     phase_profile(cfg, params, kernels, prompts)
     return counts, {r.rid: list(r.output) for r in done}, eng.stats
 
@@ -838,11 +1019,13 @@ def phase_greedy(arch, prompts, **overrides):
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_model
 
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=torch.float32,
                               param_dtype=torch.float32, **overrides)
     log(f"greedy: dtype override {cfg.name} -> float32 (params and "
         f"activations), allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
-        f"; overrides {overrides}")
+        f"; {cfg.n_layers} of {full.n_layers} layers; overrides "
+        f"{overrides}")
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         device="cuda")
     prompt = next(p for p in prompts if is_prime(len(p)))[:61]
@@ -943,6 +1126,163 @@ def phase_hybrid_moe(prompts):
     require(out == ref, "hybrid moe engine diverged from token-by-token "
             "apply_model")
     log("hybrid moe: consistent")
+
+
+def phase_llava(prompt):
+    """The vision frontend of llava-next-mistral-7b.  At full width and
+    depth in bf16: one ``prefill`` with 576 random patch embeddings ahead
+    of a 64-token prompt, then 16 greedy ``decode_step``s, timed, with
+    one flash launch per layer.  In f32 cut to 4 layers: prefill with the
+    same embeddings, then greedy decode, against token-by-token
+    ``apply_model(frontend_embeds=)``."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import model_kernels
+    from repro_torch.models import (apply_model, decode_step, init_cache,
+                                    init_model, prefill)
+    from repro_torch.models.common import param_bytes, param_count
+
+    full = get_config("llava-next-mistral-7b")
+    toks = torch.as_tensor(prompt[:LLAVA_PROMPT], device="cuda")[None]
+    # patch embeddings at the token embeddings' scale (std 0.02)
+    patches = 0.02 * torch.randn(
+        (1, full.frontend_len, full.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(7))
+    rows = full.frontend_len + LLAVA_PROMPT
+
+    def run(cfg, params):
+        """prefill + greedy decode: (tokens, prefill ms, decode ms each)."""
+        kernels = model_kernels(cfg)
+        caches = init_cache(cfg, 1, rows + LLAVA_NEW, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = prefill(cfg, params, toks, caches,
+                             frontend_embeds=patches, kernels=kernels)
+        out = [int(torch.argmax(lg[0, -1]))]
+        pre = (time.perf_counter() - t0) * 1e3
+        dec = []
+        for i in range(LLAVA_NEW - 1):
+            t0 = time.perf_counter()
+            lg, caches = decode_step(
+                cfg, params, torch.tensor([[out[-1]]], device="cuda"),
+                caches, rows + i, kernels=kernels)
+            out.append(int(torch.argmax(lg[0, -1])))
+            dec.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(lg).all()), "non-finite logits")
+        return out, pre, dec
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), full,
+                        device="cuda")
+    run(full, params)                       # warm-up
+    reset_counts()
+    out, pre, dec = run(full, params)
+    counts = read_counts()
+    want = expected_launches(full, 1)
+    require(counts == want and want["flash_attention"] == full.n_layers,
+            f"llava launches {counts}, expected {want}")
+    log(f"llava: {full.name} full width and depth ({full.n_layers} layers, "
+        f"{param_count(params)} params, {param_bytes(params)} bytes, "
+        f"{str(full.dtype)[6:]}): "
+        f"prefill of {full.frontend_len} patch embeddings + "
+        f"{LLAVA_PROMPT} tokens {pre:.3f} ms, {LLAVA_NEW - 1} decode steps "
+        f"mean {sum(dec) / len(dec):.3f} ms ({1e3 / (sum(dec) / len(dec)):.1f}"
+        f" tokens/s); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes; launches {counts}; "
+        f"tokens {out}; card {smi()}")
+    del params
+    release()
+
+    cfg = dataclasses.replace(full, n_layers=FRONTEND_CHECK_LAYERS,
+                              dtype=torch.float32, param_dtype=torch.float32)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    reset_counts()
+    out, _, _ = run(cfg, params)
+    counts = read_counts()
+    seq = toks[0].tolist()
+    ref = []
+    for _ in range(LLAVA_NEW):
+        lg = apply_model(cfg, params, torch.as_tensor(seq, device="cuda")[None],
+                         frontend_embeds=patches, kernels=model_kernels(cfg))
+        ref.append(int(torch.argmax(lg[0, -1])))
+        seq.append(ref[-1])
+    log(f"llava greedy: {cfg.name} f32, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers; prefill + decode {out}; apply_model "
+        f"{ref}; prefill launches {counts}")
+    require(counts == expected_launches(cfg, 1),
+            f"llava f32 launches {counts}")
+    require(out == ref, "llava prefill + decode diverged from token-by-token "
+            "apply_model with the same patch embeddings")
+    log("llava greedy: consistent")
+
+
+def phase_hubert():
+    """The audio encoder of hubert-xlarge.  At full width and depth in
+    bf16: ``apply_model`` on 1024 random frame embeddings through the
+    non-causal flash kernel (one launch per layer), timed and profiled.
+    In f32 cut to 4 layers: its logits against the same forward with
+    plain attention (``kernels=None``), within ``TOL["float32"]`` times
+    the layers, since each layer's attention adds its own rounding
+    difference."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import model_kernels
+    from repro_torch.models import apply_model, init_model
+    from repro_torch.models.common import param_bytes, param_count
+
+    full = get_config("hubert-xlarge")
+    frames = torch.randn((1, HUBERT_FRAMES, full.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(8))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), full,
+                        device="cuda")
+    kernels = model_kernels(full)
+    forward = lambda: apply_model(full, params, None, frontend_embeds=frames,
+                                  kernels=kernels)
+    forward()                               # warm-up
+    reset_counts()
+    lg, ms = _host_ms(forward)
+    counts = read_counts()
+    want = expected_launches(full, 1)
+    require(counts == want and want["flash_attention"] == full.n_layers,
+            f"hubert launches {counts}, expected {want}")
+    require(tuple(lg.shape) == (1, HUBERT_FRAMES, full.vocab)
+            and bool(torch.isfinite(lg).all()), f"logits {tuple(lg.shape)}")
+    log(f"hubert: {full.name} full width and depth ({full.n_layers} layers, "
+        f"{param_count(params)} params, {param_bytes(params)} bytes, "
+        f"{str(full.dtype)[6:]}, "
+        f"causal={full.causal}): apply_model on [1, {HUBERT_FRAMES}, "
+        f"{full.d_model}] frames {ms:.3f} ms ({HUBERT_FRAMES / ms * 1e3:.0f} "
+        f"frames/s); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes; launches {counts}; "
+        f"card {smi()}")
+    _profiled(f"{full.name} forward of {HUBERT_FRAMES} frames", forward)
+    del params, lg
+    release()
+
+    cfg = dataclasses.replace(full, n_layers=FRONTEND_CHECK_LAYERS,
+                              dtype=torch.float32, param_dtype=torch.float32)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    reset_counts()
+    got = apply_model(cfg, params, None, frontend_embeds=frames,
+                      kernels=model_kernels(cfg))
+    counts = read_counts()
+    ref = apply_model(cfg, params, None, frontend_embeds=frames)
+    atol, rtol = (t * cfg.n_layers for t in TOL["float32"])
+    err = (got - ref).abs()
+    ok = bool((err <= atol + rtol * ref.abs()).all())
+    log(f"hubert check: {cfg.name} f32, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers, non-causal flash kernel vs plain "
+        f"attention: logits max_abs_err={err.max().item():.3e} (atol {atol:g}"
+        f", rtol {rtol:g}; max |logit| {ref.abs().max().item():.3f}); "
+        f"launches {counts} {'ok' if ok else 'FAIL'}")
+    require(counts == expected_launches(cfg, 1), f"hubert f32 launches "
+            f"{counts}")
+    require(ok, "hubert's forward with the flash kernel disagrees with "
+            "plain attention")
 
 
 class _RecordRuntimes:
@@ -1068,13 +1408,10 @@ def _ring_registers(x):
 def _launch_ms(fn, reps: int = 20) -> float:
     """Device time of a call of ``fn``, a function that launches one
     kernel: the mean over the kernel events the profiler recorded in
-    ``reps`` calls (a window that drops events reads low in
-    ``device_ms``, not here)."""
+    ``reps`` calls."""
     for _ in range(3):
         fn()
-    _, kern = trace(lambda: [fn() for _ in range(reps)])
-    require(sum(e.count for e in kern) > 0, "the profiler recorded no "
-            "kernel")
+    kern = _events(lambda: [fn() for _ in range(reps)])
     return (sum(e.self_device_time_total for e in kern) / 1e3
             / sum(e.count for e in kern))
 
@@ -1128,13 +1465,8 @@ def phase_ring_check():
     x = torch.randn((n, 1, elems), generator=gen, device="cuda").to(
         torch.bfloat16)
     launch = lambda: rg.ring_all_gather(x)
-    # one device operation a call; a profiler window that recorded
-    # nothing is tried again
-    for _ in range(5):
-        _, kern = trace(launch)
-        if kern:
-            break
-    ops = [(_kernel_name(e.key), e.count) for e in kern]
+    # one device operation a call
+    ops = [(_kernel_name(e.key), e.count) for e in _events(launch)]
     require(ops == [("broadcast_tma_kernel", 1)],
             f"one ring call made the device operations {ops}")
     log(f"ring device operations a call: {ops} (the previous design: a "
@@ -1567,18 +1899,24 @@ def main() -> int:
     phase_build()
     import torch
     from repro_torch.configs.base import get_config
+    from repro_torch.models.moe import capacity
+    mark = lambda what: log(f"time: {what} done at "
+                            f"{time.perf_counter() - t0:.1f} s")
     prompts = _prompts(get_config("qwen2-0.5b").vocab)
     m_prompts = _prompts(get_config("mamba2-130m").vocab)
     moe_cfg = get_config("qwen3-moe-30b-a3b")
     moe_prompts = _prompts(moe_cfg.vocab)
-    from repro_torch.models.moe import capacity
     moe_caps = [capacity(moe_cfg, len(p)) for p in moe_prompts]
+    ds_cfg = get_config("deepseek-v3-671b")
+    ds_prompts = _prompts(ds_cfg.vocab)
     flash = phase_kernel_check([len(p) for p in prompts],
                                [len(p) for p in moe_prompts])
     ssd = phase_ssd_check([len(p) for p in m_prompts])
     ring = phase_ring_check()
-    gmm_times, gmm_err = phase_gmm_check(moe_caps,
-                                         capacity(moe_cfg, EP_TOKENS))
+    gmm_times, gmm_err, _ = phase_gmm_check(
+        moe_caps, capacity(moe_cfg, EP_TOKENS),
+        [capacity(ds_cfg, len(p)) for p in ds_prompts])
+    mark("kernel checks")
     counts, qwen_tokens, _ = phase_serve("qwen2-0.5b", prompts)
     flash["launches"] = counts["flash_attention"]
     release()
@@ -1611,6 +1949,36 @@ def main() -> int:
     phase_quickstart()
     phase_remote()
     phase_failover(prompts, qwen_tokens)
+    release()
+    mark("earlier slices' phases")
+    # this slice: every other reference architecture, one at a time
+    phase_serve("deepseek-v3-671b", ds_prompts,
+                cut="its 3 dense prefix layers and 2 MoE layers, with the "
+                "MTP params; the whole model, ~1.3 TB in bf16, does not fit "
+                "one card", n_layers=DSV3_SERVE_LAYERS)
+    release()
+    phase_serve("internlm2-20b", _prompts(get_config("internlm2-20b").vocab))
+    release()
+    phase_serve("starcoder2-7b", _prompts(get_config("starcoder2-7b").vocab))
+    release()
+    phase_serve("command-r-plus-104b",
+                _prompts(get_config("command-r-plus-104b").vocab),
+                cut="the whole model, ~208 GB in bf16, does not fit one card",
+                n_layers=CMDR_SERVE_LAYERS)
+    release()
+    mark("serve of the dense and MLA paths")
+    for arch, cut in GREEDY_CUTS.items():
+        c = get_config(arch)
+        extra = ({"capacity_factor": c.n_experts / c.n_experts_per_tok}
+                 if c.n_experts else {})
+        phase_greedy(arch, _prompts(c.vocab), **cut, **extra)
+        release()
+    mark("greedy checks of the dense and MLA paths")
+    phase_llava(_prompts(get_config("llava-next-mistral-7b").vocab)[0])
+    release()
+    phase_hubert()
+    release()
+    mark("frontends")
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")

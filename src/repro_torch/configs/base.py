@@ -156,13 +156,26 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    def kv_cache_spec(self, batch: int, seq: int) -> Dict[str, Any]:
+        """Logical description of the decode cache (see serving/)."""
+        return {"batch": batch, "seq": seq}
+
 
 # registry ------------------------------------------------------------------
 _REGISTRY: Dict[str, Any] = {}
 
-# the reference's other architectures come with their model families
-PORTED = {"qwen2-0.5b", "mamba2-130m", "qwen3-moe-30b-a3b",
-          "jamba-1.5-large-398b"}
+ARCH_IDS = [
+    "jamba-1.5-large-398b",
+    "qwen2-0.5b",
+    "command-r-plus-104b",
+    "internlm2-20b",
+    "starcoder2-7b",
+    "hubert-xlarge",
+    "mamba2-130m",
+    "deepseek-v3-671b",
+    "qwen3-moe-30b-a3b",
+    "llava-next-mistral-7b",
+]
 
 
 def register(name: str):
@@ -173,10 +186,9 @@ def register(name: str):
 
 
 def _module(name: str):
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet: it comes with its model "
-            f"family (ROADMAP.md, 'JAX modules still unported')")
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{list_archs()}")
     return importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
 
@@ -189,3 +201,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCH_IDS)

@@ -9,7 +9,8 @@
 
 Runs on the CUDA card by default, with the port's kernels; ``--device
 cpu`` runs the smoke config's plain path on the CPU.  ``--full`` takes
-the published width, else the smoke config.
+the published config, else the smoke config.  Encoder-only (audio)
+architectures are refused: they have no decode path.
 """
 import argparse
 import time
@@ -17,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import get_config, get_smoke_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import model_kernels
 from repro_torch.models import init_model
@@ -26,10 +27,14 @@ from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help=f"one of {', '.join(list_archs())}")
     p.add_argument("--full", action="store_true",
                    help="full config (one card holds qwen2-0.5b, "
-                   "mamba2-130m and qwen3-moe-30b-a3b)")
+                   "mamba2-130m, qwen3-moe-30b-a3b, internlm2-20b, "
+                   "starcoder2-7b and llava-next-mistral-7b; "
+                   "deepseek-v3-671b, command-r-plus-104b and "
+                   "jamba-1.5-large-398b do not fit one)")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-seq", type=int, default=256)
@@ -39,8 +44,10 @@ def main() -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if cfg.family == "audio":
+        raise SystemExit("encoder-only architectures have no decode path")
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_model(gen, cfg, device=dev)
     eng = ServingEngine(cfg, params, ServeConfig(

@@ -114,7 +114,8 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                scale: float, causal: bool, window: Optional[int], bq: int,
-               bk: int) -> torch.Tensor:
+               bk: int, n_keys: Optional[int] = None) -> torch.Tensor:
+    """Keys at ``n_keys`` and beyond (a padded tail) are masked."""
     b, hkv, g, sq, dk = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     nq, nk = sq // bq, sk // bk
@@ -131,8 +132,9 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kblk = k[:, :, kj * bk:(kj + 1) * bk]
         vblk = v[:, :, kj * bk:(kj + 1) * bk]
         k_pos = kj * bk + torch.arange(bk, device=dev)
+        k_valid = None if n_keys is None else k_pos < n_keys
         s = torch.einsum("bhgnqd,bhkd->bhgnqk", qb, kblk.float()) * scale
-        s = s + _mask_bias(q_pos, k_pos, causal, window)
+        s = s + _mask_bias(q_pos, k_pos, causal, window, k_valid)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -149,17 +151,29 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: float, causal: bool, window: Optional[int],
                       q_block: int, k_block: int) -> torch.Tensor:
     """Model layout.  q [B,S,Hq,Dk], k/v [B,S,Hkv,D*] (positions are
-    arange(S)) -> [B,S,Hq,Dv]."""
+    arange(S)) -> [B,S,Hq,Dv].
+
+    The reference takes blocks of gcd(S, block) rows, which for an odd S
+    are single rows: one step of its compiled scan each, but here one
+    Python step of ~20 launches each.  The port keeps blocks of
+    min(S, block) rows instead, pads S to a multiple of them and masks
+    the padded keys: the same function, summed over other blocks."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    bq = max(1, math.gcd(s, q_block))
-    bk = max(1, math.gcd(s, k_block))
-    qg = q.reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    bq, bk = min(s, q_block), min(s, k_block)
+    step = math.lcm(bq, bk)
+    sp = -(-s // step) * step
+    if sp > s:
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, sp - s))
+        q, k, v = pad(q), pad(k), pad(v)
+    qg = q.reshape(b, sp, hkv, g, d).permute(0, 2, 3, 1, 4)
     kg = k.transpose(1, 2)
     vg = v.transpose(1, 2)
-    out = _flash_fwd(qg, kg, vg, scale, causal, window, bq, bk)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, v.shape[-1])
+    out = _flash_fwd(qg, kg, vg, scale, causal, window, bq, bk,
+                     n_keys=s if sp > s else None)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sp, hq, v.shape[-1])
+    return out[:, :s]
 
 
 # ---------------------------------------------------------------------------

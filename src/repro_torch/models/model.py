@@ -1,23 +1,33 @@
 """Model builder: embed -> (prefix layers + periodic stack) -> head.
 
-The port of ``repro/models/model.py`` for the dense, SSM, MoE and hybrid
-(attention + Mamba, with or without experts) paths.  Layer plans come
-from ``ModelConfig.layer_plan()``.  The reference stacks the periodic
-body's params along a leading ``[n_periods]`` dim and runs it with
+The port of ``repro/models/model.py``: dense, MoE, SSM, hybrid (attention
++ Mamba, with or without experts), MLA (DeepSeek) and encoder-only
+plans, and the modality frontends.  Layer plans come from
+``ModelConfig.layer_plan()``.  The reference stacks the periodic body's
+params along a leading ``[n_periods]`` dim and runs it with
 ``lax.scan``; here ``params["stack"]`` is a list with one dict per
 period and a Python loop walks it.  The decode caches keep the
 reference's stacked layout, each layer with its own kind of cache:
 ``{k, v}`` for attention (``caches["stack"]["l0"]["k"]`` is
-``[n_periods, B, Smax, Hkv, hd]``) and ``{conv, h}`` for Mamba
-(``[n_periods, B, k-1, conv_ch]`` and ``[n_periods, B, H, N, P]``).
-Each layer reads and writes its own slice in place.  An MoE layer's FFN
-is :func:`repro_torch.models.moe.moe_apply`, which runs the
-``"moe_gmm"`` kernel hook when ``kernels`` has it.
+``[n_periods, B, Smax, Hkv, hd]``), ``{ckv, krope}`` for MLA (the
+latents, ``[n_periods, B, Smax, kv_lora]`` and ``[..., rope]``) and
+``{conv, h}`` for Mamba (``[n_periods, B, k-1, conv_ch]`` and
+``[n_periods, B, H, N, P]``).  Each layer reads and writes its own slice
+in place.  An MoE layer's FFN is :func:`repro_torch.models.moe.moe_apply`,
+which runs the ``"moe_gmm"`` kernel hook when ``kernels`` has it.
+
+Frontends are stubs, as in the reference: a VLM's precomputed patch
+embeddings ``frontend_embeds [B, P, D]`` are prepended to the token
+embeddings, and for audio the frame embeddings are the input (an audio
+model has no ``embed`` table and no decode path).  With ``mtp_depth``
+:func:`init_model` builds DeepSeek-V3's multi-token-prediction params
+(``mtp_layer``, ``mtp_proj``, ``mtp_norm``) as the reference does, so
+that its trees carry over; the MTP loss that uses them comes with the
+training slice (ROADMAP.md).
 
 Entry points: :func:`init_model`, :func:`apply_model` (full-sequence
 logits), and for serving :func:`init_cache` / :func:`prefill` /
-:func:`decode_step`.  MLA layers, the modality frontends and training
-come with later slices: asking for them raises ``NotImplementedError``.
+:func:`decode_step`.
 """
 from __future__ import annotations
 
@@ -25,33 +35,14 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..configs.base import LayerSpec
 from ..device import DeviceLike, resolve_device
 from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
 from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
                      norm, norm_init, swiglu)
+from .mla import _latents, mla_apply, mla_cache_init, mla_decode, mla_init
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_cache_init, ssm_decode, ssm_init
-
-_LATER = {
-    "mla": "ROADMAP.md, slice 5 (MLA)",
-}
-
-
-def _unsupported(cfg: Any) -> None:
-    for spec in cfg.layer_plan():
-        for part in (spec.mixer, spec.ffn):
-            if part in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: the {part!r} layer is not ported yet "
-                    f"({_LATER[part]})")
-    if cfg.frontend is not None or cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet "
-            f"(ROADMAP.md, 'JAX modules still unported')")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is training-only and "
-            f"comes with the training slice (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +70,8 @@ def ffn_apply(cfg: Any, p: PyTree, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def layer_init(gen: torch.Generator, cfg: Any, spec: Any,
                device: torch.device) -> PyTree:
-    mixer = ssm_init if spec.mixer == "mamba" else attn_init
+    mixer = {"attn": attn_init, "mla": mla_init,
+             "mamba": ssm_init}[spec.mixer]
     p = {"norm1": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, device),
          "mixer": mixer(gen, cfg, device)}
     if spec.ffn is not None:
@@ -99,7 +91,8 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer -> (x, the MoE layer's aux loss or None).  In
     ``prefill`` and ``decode`` mode ``cache`` (this layer's ``{k, v}``
-    [B,Smax,Hkv,hd] or ``{conv, h}``) is written in place."""
+    [B,Smax,Hkv,hd], ``{ckv, krope}`` or ``{conv, h}``) is written in
+    place."""
     impl = impl or getattr(cfg, "attn_impl", "chunked")
     kernels = kernels or {}
     h = norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -115,6 +108,13 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
                 # prompt left in this slot
                 cache["conv"].copy_(state["conv"])
                 cache["h"].copy_(state["h"])
+    elif spec.mixer == "mla":
+        if mode == "decode":
+            y, _ = mla_decode(cfg, p["mixer"], h, cache, lengths)
+        else:
+            y = mla_apply(cfg, p["mixer"], h, positions=positions, impl=impl)
+            if mode == "prefill":
+                _mla_fill_cache(cfg, p["mixer"], h, positions, cache)
     elif mode == "decode":
         y, _ = attn_decode(cfg, p["mixer"], h, cache, lengths)
     else:
@@ -139,6 +139,15 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
     return x, aux
 
 
+def _mla_fill_cache(cfg: Any, p: PyTree, h: torch.Tensor,
+                    positions: torch.Tensor, cache: PyTree) -> None:
+    """Write the prompt's latents to rows [0, S) of ``{ckv, krope}``."""
+    c_kv, k_rope = _latents(cfg, p, h, positions)
+    s = h.shape[1]
+    cache["ckv"][:, :s] = c_kv.to(cache["ckv"].dtype)
+    cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+
+
 # ---------------------------------------------------------------------------
 # whole model
 # ---------------------------------------------------------------------------
@@ -146,13 +155,16 @@ def init_model(gen: torch.Generator, cfg: Any, *,
                device: DeviceLike = None) -> PyTree:
     """Random params from ``gen`` with the reference's distributions, on
     ``device`` (default ``"cuda"``; raises where CUDA is absent).  The
-    draws run on the generator's device and are moved."""
+    draws run on the generator's device and are moved.  An audio model
+    has no ``embed`` (its inputs are frame embeddings); with
+    ``cfg.mtp_depth`` the multi-token-prediction params are built as in
+    the reference, for the training slice's loss."""
     dev = resolve_device(device)
-    _unsupported(cfg)
     prefix, period, n_periods = cfg.scan_plan()
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model,
-                            dtype=cfg.param_dtype, device=dev)}
+    params: Dict[str, Any] = {}
+    if cfg.family != "audio":
+        params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model,
+                                     dtype=cfg.param_dtype, device=dev)
     for i, spec in enumerate(prefix):
         params[f"prefix_{i}"] = layer_init(gen, cfg, spec, dev)
     params["stack"] = [
@@ -164,7 +176,25 @@ def init_model(gen: torch.Generator, cfg: Any, *,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab,
                                     dtype=cfg.param_dtype, device=dev)
+    if cfg.mtp_depth:
+        spec = LayerSpec("attn" if cfg.family != "ssm" else "mamba", "dense")
+        params["mtp_layer"] = layer_init(gen, cfg, spec, dev)
+        params["mtp_proj"] = dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                        dtype=cfg.param_dtype, device=dev)
+        params["mtp_norm"] = norm_init(cfg.norm, cfg.d_model,
+                                       cfg.param_dtype, dev)
     return params
+
+
+def _embed_in(cfg: Any, params: PyTree, tokens: Optional[torch.Tensor],
+              frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    if cfg.family == "audio":
+        # encoder stub: the inputs are frame embeddings [B, S, D]
+        return frontend_embeds.to(cfg.dtype)
+    x = embed(params["embed"], tokens, cfg.dtype)
+    if frontend_embeds is not None:      # VLM: prepend patch embeddings
+        x = torch.cat([frontend_embeds.to(cfg.dtype), x], dim=1)
+    return x
 
 
 def _head_out(cfg: Any, params: PyTree, x: torch.Tensor) -> torch.Tensor:
@@ -201,15 +231,18 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
 
 
 @torch.no_grad()
-def apply_model(cfg: Any, params: PyTree, tokens: torch.Tensor, *,
+def apply_model(cfg: Any, params: PyTree, tokens: Optional[torch.Tensor], *,
+                frontend_embeds: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None,
                 kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Full-sequence forward.  tokens [B, S] -> logits [B, S, V].  The
+    """Full-sequence forward.  tokens [B, S] -> logits [B, S', V] (S' =
+    P + S with a VLM's ``frontend_embeds [B, P, D]``; for audio the
+    frames ``[B, S, D]`` are the input and ``tokens`` is not read).  The
     reference returns ``(logits, aux)``; the MoE aux loss is a training
     quantity, so it stays out of this inference entry point until the
     training slice (the twins check it at ``moe_apply``, and
     ``layer_apply`` returns it)."""
-    x = embed(params["embed"], tokens, cfg.dtype)
+    x = _embed_in(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
     x = _stack_sweep(cfg, params, x, positions=positions, mode="train",
@@ -224,13 +257,14 @@ def layer_cache_init(cfg: Any, spec: Any, batch: int, max_seq: int,
                      device: torch.device) -> PyTree:
     if spec.mixer == "mamba":
         return ssm_cache_init(cfg, batch, device=device)
+    if spec.mixer == "mla":
+        return mla_cache_init(cfg, batch, max_seq, device=device)
     return attn_cache_init(cfg, batch, max_seq, device=device)
 
 
 def init_cache(cfg: Any, batch: int, max_seq: int, *,
                device: DeviceLike = None) -> PyTree:
     dev = resolve_device(device)
-    _unsupported(cfg)
     prefix, period, n_periods = cfg.scan_plan()
     caches: Dict[str, Any] = {
         f"prefix_{i}": layer_cache_init(cfg, spec, batch, max_seq, dev)
@@ -264,12 +298,14 @@ def slot_view(cfg: Any, caches: PyTree, slot: int) -> PyTree:
 
 @torch.no_grad()
 def prefill(cfg: Any, params: PyTree, tokens: torch.Tensor, caches: PyTree,
-            *, impl: Optional[str] = None,
+            *, frontend_embeds: Optional[torch.Tensor] = None,
+            impl: Optional[str] = None,
             kernels: Optional[Dict[str, Any]] = None
             ) -> Tuple[torch.Tensor, PyTree]:
-    """Fill rows [0, S) of the cache in place for the prompt; return
-    (last-position logits [B, 1, V], caches)."""
-    x = embed(params["embed"], tokens, cfg.dtype)
+    """Fill rows [0, S') of the cache in place for the prompt (S' = P + S
+    with a VLM's patch embeddings ``frontend_embeds [B, P, D]`` ahead of
+    the tokens); return (last-position logits [B, 1, V], caches)."""
+    x = _embed_in(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
     x = _stack_sweep(cfg, params, x, positions=positions, mode="prefill",

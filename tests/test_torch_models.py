@@ -171,9 +171,10 @@ def test_init_model_layout_and_distributions():
 
 @pytest.mark.parametrize("kind", ["hybrid_moe", "moe", "mla"])
 def test_unported_layers_raise(kind):
-    """MLA layers are not ported yet and raise.  MoE layers, alone
+    """Every layer kind is ported now and builds: MoE layers, alone
     (``moe``) or in Jamba's plan (``hybrid_moe``: mamba and attention
-    layers, experts every second layer), are ported and build."""
+    layers, experts every second layer), and MLA layers (``mla``), whose
+    params and latent cache take the reference's keys and shapes."""
     kw = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
               vocab=64, dtype=torch.float32, param_dtype=torch.float32)
     extra = {"hybrid_moe": dict(family="hybrid", ssm_state=16,
@@ -183,20 +184,56 @@ def test_unported_layers_raise(kind):
                                 expert_layer_offset=1),
              "moe": dict(family="moe", n_experts=4, n_experts_per_tok=2,
                          moe_d_ff=32),
-             "mla": dict(q_lora_rank=16, kv_lora_rank=16)}[kind]
+             "mla": dict(q_lora_rank=16, kv_lora_rank=16,
+                         qk_nope_head_dim=8, qk_rope_head_dim=4,
+                         v_head_dim=8)}[kind]
     cfg = TConfig(**kw, **extra)
-    if kind == "mla":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_model(torch.Generator(), cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_cache(cfg, 1, 8, device="cpu")
-        return
     params = init_model(torch.Generator(), cfg, device="cpu")
-    init_cache(cfg, 1, 8, device="cpu")
+    caches = init_cache(cfg, 1, 8, device="cpu")
     prefix, period, n_periods = cfg.scan_plan()
+    if kind == "mla":
+        mixer = params["stack"][0]["l0"]["mixer"]
+        assert {k: tuple(v["w"].shape) for k, v in mixer.items()
+                if "w" in v} == {
+            "w_dq": (32, 16), "w_uq": (16, 4 * 12), "w_dkv": (32, 16 + 4),
+            "w_uk": (16, 4 * 8), "w_uv": (16, 4 * 8), "wo": (4 * 8, 32)}
+        assert {k: tuple(t.shape) for k, t in caches["stack"]["l0"].items()
+                } == {"ckv": (n_periods, 1, 8, 16),
+                      "krope": (n_periods, 1, 8, 4)}
+        return
     moe = [f"l{j}" for j, spec in enumerate(period) if spec.ffn == "moe"]
     assert moe and all(set(params["stack"][0][name]["ffn"]) == {
         "router", "w_gate", "w_up", "w_down"} for name in moe)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 8),
+                                           (False, None)])
+@pytest.mark.parametrize("s", [37, 40])
+def test_chunked_attention_pads_to_whole_blocks(monkeypatch, s, causal,
+                                                window):
+    """The chunked path keeps blocks of q_block rows and masks a padded
+    tail (37 is prime: the reference's gcd blocks are single rows there),
+    and equals the reference's ``attention_chunked``."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.standard_normal((2, s, h, 8)).astype(np.float32)
+               for h in (4, 2, 2))
+    kw = dict(scale=8 ** -0.5, causal=causal, window=window, q_block=16,
+              k_block=16)
+    want = jax.jit(lambda q, k, v: jattn.attention_chunked(q, k, v, **kw))(
+        q, k, v)
+    blocks = []
+    fwd = tattn._flash_fwd
+
+    def spy(*a, **k):
+        blocks.append(a[6:8])
+        return fwd(*a, **k)
+
+    monkeypatch.setattr(tattn, "_flash_fwd", spy)
+    got = tattn.attention_chunked(*map(torch.as_tensor, (q, k, v)), **kw)
+    assert blocks == [(16, 16)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 VARIANTS = {

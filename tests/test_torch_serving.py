@@ -403,3 +403,58 @@ def test_moe_engine_with_more_slots_than_capacity_matches_reference(
     assert most and max(most) > tm.capacity(tcfg, scfg["n_slots"])
     _same(jd, td)
     assert te.stats == je.stats
+
+
+# ---------------------------------------------------------------------------
+# The architectures of the last slice: DeepSeek-V3 (MLA layers with the
+# absorbed decode against the latent cache, a dense prefix layer, MoE with
+# a sigmoid router and a shared expert) and starcoder2-7b (layernorm,
+# GELU, QKV bias, a 16-row sliding window that the prompts cross); and
+# launch/serve.py's refusal of the encoder-only audio architecture.
+# ---------------------------------------------------------------------------
+from repro.configs.deepseek_v3_671b import smoke as jdeepseek  # noqa: E402
+from repro.configs.starcoder2_7b import smoke as jstarcoder  # noqa: E402
+from repro_torch.configs.deepseek_v3_671b import smoke as tdeepseek  # noqa: E402
+from repro_torch.configs.starcoder2_7b import smoke as tstarcoder  # noqa: E402
+
+ARCH_SERVE = dict(n_slots=3, max_seq=48, max_new_tokens=6)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3", "starcoder2"])
+def test_new_arch_engine_matches_reference(arch):
+    """Five requests on three slots, prompts of 9 and 21 tokens (21 + 6
+    rows cross starcoder2's window of 16): the port's engine, with the
+    port's kernels as its serve path builds it, gives the reference
+    engine's greedy tokens and stats."""
+    jcfg, tcfg = {"deepseek-v3": (jdeepseek, tdeepseek),
+                  "starcoder2": (jstarcoder, tstarcoder)}[arch]
+    jcfg, tcfg = jcfg(), tcfg()
+    jp = jax.jit(lambda k: jinit(k, jcfg)[0])(jax.random.PRNGKey(7))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, jcfg.vocab, n).astype(np.int32)
+               for n in (9, 21, 9, 21, 9)]
+    je = JEngine(jcfg, jp, JServe(**ARCH_SERVE))
+    te = TEngine(tcfg, tp, TServe(**ARCH_SERVE), device="cpu",
+                 kernels=model_kernels(tcfg))
+    for i, p in enumerate(prompts):
+        je.submit(JRequest(rid=i, prompt=p))
+        te.submit(TRequest(rid=i, prompt=p))
+    _same(je.run_until_drained(), te.run_until_drained())
+    assert te.stats == je.stats and not te.failed
+
+
+def test_serve_cli_refuses_audio():
+    """``launch/serve.py --arch hubert-xlarge`` exits with the reference's
+    message, on the CPU too: an encoder has no decode path."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", "hubert-xlarge", "--device", "cpu"],
+                       env=dict(os.environ, PYTHONPATH=str(src)),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "encoder-only architectures have no decode path" in r.stderr
