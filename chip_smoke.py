@@ -75,6 +75,20 @@ non-zero:
    ``apply_model`` on 1024 frames through the non-causal flash kernel,
    and in f32 at 4 layers against plain attention.
 
+15. training, with no kernel of the port (the reference trains with
+   ``kernels=None``; the four kernels must launch 0 times): qwen2-0.5b at
+   full width and depth (bf16 params, f32 moments, ``remat="full"``, seq
+   1024 x batch 8, so the chunked attention and its custom backward run
+   on 4 blocks of 256) through ``Trainer.run`` for 8 steps; the same run
+   again checkpointing every 2 steps with a node failure injected at
+   step 5, which must recover to step 8 with the uninterrupted run's
+   losses; one step each with ``grad_accum=2`` (f32 and int8
+   accumulators); mamba2-130m for 4 steps; qwen3-moe-30b-a3b at full
+   width cut to 4 of 48 layers for 4 steps; and the attention's custom
+   backward against autograd through ``attention_full`` in f32 at qwen2's
+   head shape.  Each step prints its host ms, tokens/s and model flop/s,
+   each run its peak memory, one profiled step its busy share.
+
 Phase 3 also checks flash at internlm2-20b's, command-r-plus-104b's,
 llava's and hubert's attention shapes (head dim 80, not causal) and the
 grouped matmul at deepseek-v3's expert shape (256 experts, 7168 <-> 2048).
@@ -89,6 +103,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -175,6 +190,28 @@ GREEDY_CUTS = {
 # the VLM frontend: 576 patch embeddings ahead of a 64-token prompt, 16 new
 # tokens; the audio encoder: 1024 frames.  Their f32 checks keep 4 layers
 LLAVA_PROMPT, LLAVA_NEW, HUBERT_FRAMES, FRONTEND_CHECK_LAYERS = 64, 16, 1024, 4
+# training: qwen2-0.5b at seq 1024 x batch 8 for 8 steps, the second run
+# failing at step 5 with a checkpoint every 2 steps; mamba2-130m and
+# qwen3-moe-30b-a3b (cut to 4 layers) for 4 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SHORT_STEPS = 1024, 8, 8, 4
+TRAIN_FAIL_AT, TRAIN_CKPT_EVERY, MOE_TRAIN_LAYERS = 5, 2, 4
+# the reference's training driver's default learning rate (at 1e-3 the
+# loss of qwen3-moe-30b-a3b's 4-layer cut rose from 11.1 to 19.7 at step
+# 4, measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W)
+TRAIN_LR = 3e-4
+# the failed run's losses against the uninterrupted run's, step for step:
+# the same bf16 steps on the same batches from a bit-exact restore, equal
+# but for the order of any atomic adds
+TRAIN_LOSS_RTOL = 1e-4
+# grad_accum=2 against one step on the same batch: the same gradient, its
+# bf16 products summed over other token sets (the int8 accumulator
+# carries its quantisation error in f32, so it sums as the f32 one does)
+ACCUM_NORM_RTOL = 5e-2
+# the attention's custom backward against autograd through attention_full
+# in f32 (no TF32): the same products summed in other orders; each of out,
+# dq, dk, dv within 1e-5 of its reference's largest magnitude (the CPU
+# at this shape: 1.2e-6)
+FLASH_BWD_RTOL = 1e-5
 
 
 def log(*a) -> None:
@@ -1005,9 +1042,10 @@ def _greedy(cfg, params, prompt, n_new):
     ticks = eng.stats["ticks"]
     toks = [int(t) for t in prompt]
     for _ in range(n_new):
-        lg = apply_model(cfg, params,
-                         torch.as_tensor(toks, device="cuda")[None],
-                         kernels=kernels)
+        with torch.no_grad():
+            lg = apply_model(cfg, params,
+                             torch.as_tensor(toks, device="cuda")[None],
+                             kernels=kernels)[0]
         toks.append(int(torch.argmax(lg[0, -1])))
     return out, toks[len(prompt):], counts, ticks
 
@@ -1203,8 +1241,11 @@ def phase_llava(prompt):
     seq = toks[0].tolist()
     ref = []
     for _ in range(LLAVA_NEW):
-        lg = apply_model(cfg, params, torch.as_tensor(seq, device="cuda")[None],
-                         frontend_embeds=patches, kernels=model_kernels(cfg))
+        with torch.no_grad():
+            lg = apply_model(cfg, params,
+                             torch.as_tensor(seq, device="cuda")[None],
+                             frontend_embeds=patches,
+                             kernels=model_kernels(cfg))[0]
         ref.append(int(torch.argmax(lg[0, -1])))
         seq.append(ref[-1])
     log(f"llava greedy: {cfg.name} f32, depth cut to {cfg.n_layers} of "
@@ -1239,8 +1280,12 @@ def phase_hubert():
     params = init_model(torch.Generator(device="cuda").manual_seed(0), full,
                         device="cuda")
     kernels = model_kernels(full)
-    forward = lambda: apply_model(full, params, None, frontend_embeds=frames,
-                                  kernels=kernels)
+
+    def forward():
+        with torch.no_grad():
+            return apply_model(full, params, None, frontend_embeds=frames,
+                               kernels=kernels)[0]
+
     forward()                               # warm-up
     reset_counts()
     lg, ms = _host_ms(forward)
@@ -1267,10 +1312,11 @@ def phase_hubert():
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         device="cuda")
     reset_counts()
-    got = apply_model(cfg, params, None, frontend_embeds=frames,
-                      kernels=model_kernels(cfg))
-    counts = read_counts()
-    ref = apply_model(cfg, params, None, frontend_embeds=frames)
+    with torch.no_grad():
+        got = apply_model(cfg, params, None, frontend_embeds=frames,
+                          kernels=model_kernels(cfg))[0]
+        counts = read_counts()
+        ref = apply_model(cfg, params, None, frontend_embeds=frames)[0]
     atol, rtol = (t * cfg.n_layers for t in TOL["float32"])
     err = (got - ref).abs()
     ok = bool((err <= atol + rtol * ref.abs()).all())
@@ -1878,6 +1924,215 @@ def phase_failover(prompts, want_tokens):
         f"card {smi()}")
 
 
+def _train(label, cfg, tcfg, steps, injector=None):
+    """``Trainer.run(steps)`` on the card; prints each logged step and the
+    run's peak memory.  Returns the trainer and the run's result."""
+    import torch
+    from repro_torch.runtime import Trainer
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tcfg, device="cuda", failure_injector=injector)
+    t0 = time.perf_counter()
+    res = tr.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for m in tr.metrics_log:
+        share = 100 * m["model_flops_per_s"] / PEAK_FLOPS["bfloat16"]
+        log(f"train {label}: step {m['step']} loss {m['loss']:.6f} xent "
+            f"{m['xent']:.6f} aux {m['aux']:.6f} grad_norm "
+            f"{m['grad_norm']:.6f} lr {m['lr']:.3e}; host "
+            f"{m['dt'] * 1e3:.3f} ms, {m['tokens_per_s']:.1f} tokens/s, "
+            f"model {m['model_flops_per_s']:.4e} flop/s = {share:.2f}% of "
+            f"the bf16 dense peak")
+    log(f"train {label}: final step {res['final_step']}, "
+        f"{res['failures']} failures, {len(res['straggler_events'])} "
+        f"straggler events, wall {wall:.3f} s (init excluded), "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
+        f"card {smi()}")
+    require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                for m in tr.metrics_log), f"{label}: a loss is not finite")
+    return tr, res
+
+
+def _train_cfg(arch, steps, **overrides):
+    from repro_torch.configs.base import get_config
+    from repro_torch.runtime import TrainConfig
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **overrides)
+    depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers
+             else f"cut to {cfg.n_layers} of {full.n_layers} layers")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup=2, total_steps=steps,
+                       seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       log_every=1)
+    log(f"train: {cfg.name} full width, {depth}; params "
+        f"{str(cfg.param_dtype)[6:]}, activations {str(cfg.dtype)[6:]}, "
+        f"moments {str(cfg.opt_dtype)[6:]}, remat {cfg.remat!r}; seq "
+        f"{TRAIN_SEQ} x batch {TRAIN_BATCH}, lr {tcfg.lr} (warmup "
+        f"{tcfg.warmup}, cosine to step {steps})")
+    return cfg, tcfg
+
+
+def phase_train_qwen():
+    """qwen2-0.5b: run A uninterrupted, run B with checkpoints and a node
+    failure, the checkpoint's write and restore times, the accumulators.
+    Returns nothing; fails on any check."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.runtime import FailureInjector, make_train_step
+
+    cfg, tcfg = _train_cfg("qwen2-0.5b", TRAIN_STEPS)
+    tr, res = _train("qwen2-0.5b run A", cfg, tcfg, TRAIN_STEPS)
+    loss_a = {m["step"]: m["loss"] for m in tr.metrics_log}
+    require(res["final_step"] == TRAIN_STEPS and not res["failures"],
+            f"run A: {res}")
+    require(loss_a[TRAIN_STEPS] < loss_a[1],
+            f"the loss did not fall: {loss_a}")
+    gnorm1 = tr.metrics_log[0]["grad_norm"]
+    batch0 = tr._host_batch(0)
+    nxt = tr._host_batch(tr.step_count)
+    _profiled(f"{cfg.name} train step (seq {TRAIN_SEQ} x batch "
+              f"{TRAIN_BATCH})", lambda: tr._step_fn(tr.params, tr.opt, nxt))
+    del tr, nxt
+    release()
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        log(f"train: checkpoints in a temporary directory with "
+            f"{shutil.disk_usage(ckpt_dir).free} bytes free")
+        tr, res = _train(
+            "qwen2-0.5b run B", cfg,
+            dataclasses.replace(tcfg, ckpt_dir=ckpt_dir,
+                                ckpt_every=TRAIN_CKPT_EVERY, keep_ckpts=2),
+            TRAIN_STEPS, FailureInjector(fail_at=[TRAIN_FAIL_AT]))
+        require(res["failures"] == 1 and res["final_step"] == TRAIN_STEPS,
+                f"run B: {res}")
+        steps = [m["step"] for m in tr.metrics_log]
+        redo = list(range(TRAIN_FAIL_AT, TRAIN_STEPS + 1))
+        require(steps == list(range(1, TRAIN_FAIL_AT + 1)) + redo,
+                f"run B logged steps {steps}")
+        diffs = [abs(m["loss"] - loss_a[m["step"]]) / loss_a[m["step"]]
+                 for m in tr.metrics_log]
+        bitwise = all(m["loss"] == loss_a[m["step"]] for m in tr.metrics_log)
+        log(f"train: run B failed at step {TRAIN_FAIL_AT}, restored the "
+            f"step-{TRAIN_FAIL_AT - 1} checkpoint, redid steps {redo}; its "
+            f"losses against run A's, step for step: largest relative "
+            f"difference {max(diffs):.3e} (bound {TRAIN_LOSS_RTOL}); "
+            f"bitwise equal: {bitwise}")
+        require(max(diffs) <= TRAIN_LOSS_RTOL,
+                f"run B's losses differ from run A's: {diffs}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save(blocking=True)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        step_dir = Path(ckpt_dir) / f"step_{tr.step_count:09d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        t0 = time.perf_counter()
+        require(tr.restore(), "no checkpoint to restore")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        log(f"train: checkpoint of step {tr.step_count} (params + AdamW "
+            f"state, {len(list(step_dir.iterdir())) - 2} leaves, {nbytes} "
+            f"bytes): write {write_ms:.3f} ms (device to host and files), "
+            f"restore {restore_ms:.3f} ms (files to device)")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr
+    release()
+
+    for compressed in (False, True):
+        params = init_model(torch.Generator(device="cuda").manual_seed(
+            tcfg.seed), cfg, device="cuda")
+        opt = adamw_init(params, cfg.opt_dtype)
+        step = make_train_step(cfg, dataclasses.replace(
+            tcfg, grad_accum=2, compressed_accum=compressed),
+            cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.total_steps))
+        _, _, m = step(params, opt, batch0)
+        gnorm = float(m["grad_norm"])
+        log(f"train: {cfg.name} grad_accum=2 with the "
+            f"{'int8 + error-feedback' if compressed else 'f32'} "
+            f"accumulator, step 1: grad_norm {gnorm:.6f}, loss "
+            f"{float(m['loss']):.6f}; grad_accum=1 on the same batch "
+            f"{gnorm1:.6f} (relative difference "
+            f"{abs(gnorm - gnorm1) / gnorm1:.3e}, bound {ACCUM_NORM_RTOL})")
+        require(abs(gnorm - gnorm1) <= ACCUM_NORM_RTOL * gnorm1,
+                "accumulated gradient norm differs")
+        del params, opt, step, m
+        release()
+
+
+def phase_train_short(arch, cut=None, **overrides):
+    """``TRAIN_SHORT_STEPS`` steps of ``arch`` at full width (``overrides``
+    cut its depth, ``cut`` says why), one of them profiled."""
+    cfg, tcfg = _train_cfg(arch, TRAIN_SHORT_STEPS, **overrides)
+    if cut:
+        log(f"train: {cfg.name} cut: {cut}")
+    tr, res = _train(cfg.name, cfg, tcfg, TRAIN_SHORT_STEPS)
+    require(res["final_step"] == TRAIN_SHORT_STEPS, f"{res}")
+    if cfg.n_experts:
+        require(all(m["aux"] > 0 for m in tr.metrics_log),
+                "the MoE aux loss is not in the metrics")
+    nxt = tr._host_batch(tr.step_count)
+    _profiled(f"{cfg.name} train step (seq {TRAIN_SEQ} x batch "
+              f"{TRAIN_BATCH})", lambda: tr._step_fn(tr.params, tr.opt, nxt))
+    del tr, nxt
+    release()
+
+
+def phase_flash_backward():
+    """The chunked attention's custom backward (``_Flash``) against
+    autograd through ``attention_full``, f32, qwen2-0.5b's heads (14 query,
+    2 KV, D 64), S 1024 (4 blocks of 256), causal."""
+    import torch
+    from repro_torch.models.attention import attention_chunked, attention_full
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s = 2, TRAIN_SEQ
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
+                   for shape in ((b, s, 14, 64), (b, s, 2, 64),
+                                 (b, s, 2, 64), (b, s, 14, 64)))
+    pos = torch.arange(s, device="cuda")
+    res = []
+    for fn in (lambda q, k, v: attention_chunked(
+                   q, k, v, scale=0.125, causal=True, window=None,
+                   q_block=256, k_block=256),
+               lambda q, k, v: attention_full(
+                   q, k, v, scale=0.125, causal=True, window=None,
+                   q_pos=pos, k_pos=pos)):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*xs)
+        out.backward(do)
+        res.append([out.detach()] + [x.grad for x in xs])
+    errs = {}
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), *res):
+        errs[name] = float((got - ref).abs().max())
+        bound = FLASH_BWD_RTOL * float(ref.abs().max())
+        require(errs[name] <= bound,
+                f"flash backward {name}: error {errs[name]} > {bound}")
+    log(f"flash backward check: f32, [{b}, {s}] x 14/2 heads x 64, causal, "
+        f"chunked (blocks of 256) vs autograd through attention_full: max "
+        f"abs errors {errs} (each within {FLASH_BWD_RTOL} x its reference's "
+        f"largest magnitude)")
+
+
+def phase_train():
+    """Phase 15: every training path, with the four kernels' launch counts
+    set to 0 before and read after (the reference trains with
+    ``kernels=None``)."""
+    reset_counts()
+    phase_train_qwen()
+    phase_train_short("mamba2-130m")
+    phase_train_short("qwen3-moe-30b-a3b",
+                      cut="4 of 48 layers (~3.1 G params: with bf16 grads "
+                      "and f32 moments ~37 GB; the whole model's state does "
+                      "not fit one card)", n_layers=MOE_TRAIN_LAYERS)
+    phase_flash_backward()
+    counts = read_counts()
+    log(f"train: kernel launches across every training phase {counts}")
+    require(not any(counts.values()),
+            f"a TPU-kernel port launched during training: {counts}")
+
+
 def release() -> None:
     """Free the last phase's model before the next: an engine and its
     executor's task closures refer to each other, so only the garbage
@@ -1979,6 +2234,8 @@ def main() -> int:
     phase_hubert()
     release()
     mark("frontends")
+    phase_train()
+    mark("training")
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,17 +1,23 @@
-"""Grouped-query attention (GQA) with RoPE: prefill and decode paths.
+"""Grouped-query attention (GQA) with RoPE: train, prefill and decode.
 
-The port of ``repro/models/attention.py`` for one card.  Prefill
-(:func:`attn_apply`) takes the ``kernel_fn`` hook first (the flash
-kernel of :func:`repro_torch.kernels.model_kernels`); without one it
-runs ``attention_full`` for ``s <= q_block`` and otherwise the forward of
-the chunked online-softmax path.  Decode (:func:`attn_decode`) stays
+The port of ``repro/models/attention.py`` for one card.  The
+full-sequence path (:func:`attn_apply`) takes the ``kernel_fn`` hook
+first (the flash kernel of :func:`repro_torch.kernels.model_kernels`;
+training passes none, as the reference's does); without one it runs
+``attention_full`` for ``s <= q_block`` and otherwise the chunked
+online-softmax path.  Decode (:func:`attn_decode`) stays
 plain PyTorch, as the reference computes it outside any kernel, and
 takes one cache length per sequence so that slots at different fill
 levels share one batch.
 
-The reference's sharding constraints are dropped (there is no mesh on
-one card), and so are the chunked path's custom VJP (training is a later
-slice) and the sequence-sharded decode (it comes with ``parallel/``).
+The chunked path keeps the reference's custom VJP as
+:class:`_Flash`, a ``torch.autograd.Function``: the forward saves only
+``(q, k, v, out, lse)`` and the backward recomputes each block's scores,
+so training holds O(S) residuals per layer instead of every block's
+probabilities.  ``attention_full`` stays plain autograd, as in the
+reference.  The reference's sharding constraints are dropped (there is
+no mesh on one card), and so is the sequence-sharded decode (it comes
+with ``parallel/``).
 
 Decode writes the new key/value row into the cache in place and returns
 the same cache: the cache is the engine's largest buffer, and the
@@ -109,42 +115,109 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# chunked online-softmax attention (the forward of the reference's
+# chunked online-softmax attention with a custom backward (the reference's
 # ``_flash``).  Grouped layout: q [B,Hkv,G,S,Dk], k/v [B,Hkv,S,D*].
 # ---------------------------------------------------------------------------
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The dtype the blocks are summed in: f32, or f64 for f64 inputs
+    (``gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                scale: float, causal: bool, window: Optional[int], bq: int,
-               bk: int, n_keys: Optional[int] = None) -> torch.Tensor:
-    """Keys at ``n_keys`` and beyond (a padded tail) are masked."""
+               bk: int, n_keys: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (out [B,Hkv,G,S,Dv] in v's dtype, lse = m + log(l) [B,Hkv,G,S]
+    in the blocks' dtype).  Keys at ``n_keys`` and beyond (a padded tail)
+    are masked."""
     b, hkv, g, sq, dk = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     nq, nk = sq // bq, sk // bk
-    dev = q.device
+    dev, f = q.device, _acc(q)
     # every q chunk at once (the reference vmaps over them)
-    qb = q.reshape(b, hkv, g, nq, bq, dk).float()
+    qb = q.reshape(b, hkv, g, nq, bq, dk).to(f)
     q_pos = torch.arange(sq, device=dev).reshape(nq, bq)
-    acc = torch.zeros((b, hkv, g, nq, bq, dv), dtype=torch.float32,
-                      device=dev)
-    m = torch.full((b, hkv, g, nq, bq), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((b, hkv, g, nq, bq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, nq, bq, dv), dtype=f, device=dev)
+    m = torch.full((b, hkv, g, nq, bq), NEG_INF, dtype=f, device=dev)
+    l = torch.zeros((b, hkv, g, nq, bq), dtype=f, device=dev)
     for kj in range(nk):
         kblk = k[:, :, kj * bk:(kj + 1) * bk]
         vblk = v[:, :, kj * bk:(kj + 1) * bk]
         k_pos = kj * bk + torch.arange(bk, device=dev)
         k_valid = None if n_keys is None else k_pos < n_keys
-        s = torch.einsum("bhgnqd,bhkd->bhgnqk", qb, kblk.float()) * scale
+        s = torch.einsum("bhgnqd,bhkd->bhgnqk", qb, kblk.to(f)) * scale
         s = s + _mask_bias(q_pos, k_pos, causal, window, k_valid)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhgnqk,bhkd->bhgnqd", p.to(v.dtype).float(),
-                          vblk.float()).to(v.dtype)
+        pv = torch.einsum("bhgnqk,bhkd->bhgnqd", p.to(v.dtype).to(f),
+                          vblk.to(f)).to(v.dtype)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype)
-    return out.reshape(b, hkv, g, sq, dv)
+    l_safe = torch.clamp(l, min=1e-30)
+    out = (acc / l_safe[..., None]).to(v.dtype)
+    lse = m + torch.log(l_safe)
+    return out.reshape(b, hkv, g, sq, dv), lse.reshape(b, hkv, g, sq)
+
+
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+               scale: float, causal: bool, window: Optional[int], bq: int,
+               bk: int, n_keys: Optional[int]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's single-pass backward, every q chunk at once:
+    ``Di = sum(dout * out)``, then per KV block ``p = exp(s - lse)``,
+    ``dp = dout . v``, ``ds = p (dp - Di) scale``, and dq, dk, dv summed
+    over the blocks.  A padded key gets p = 0; a padded query row gets
+    ``dout = 0`` from the slice that drops it, so ``ds = 0`` there."""
+    b, hkv, g, sq, dk = q.shape
+    sk, dv = k.shape[2], v.shape[-1]
+    nq, nk = sq // bq, sk // bk
+    dev, f = q.device, _acc(q)
+    qb = q.reshape(b, hkv, g, nq, bq, dk).to(f)
+    dob = dout.reshape(b, hkv, g, nq, bq, dv).to(f)
+    lseb = lse.reshape(b, hkv, g, nq, bq)
+    di = (dob * out.reshape(b, hkv, g, nq, bq, dv).to(f)).sum(-1)
+    q_pos = torch.arange(sq, device=dev).reshape(nq, bq)
+    dq = torch.zeros((b, hkv, g, nq, bq, dk), dtype=f, device=dev)
+    dks, dvs = [], []
+    for kj in range(nk):
+        kblk = k[:, :, kj * bk:(kj + 1) * bk].to(f)
+        vblk = v[:, :, kj * bk:(kj + 1) * bk].to(f)
+        k_pos = kj * bk + torch.arange(bk, device=dev)
+        k_valid = None if n_keys is None else k_pos < n_keys
+        s = torch.einsum("bhgnqd,bhkd->bhgnqk", qb, kblk) * scale
+        s = s + _mask_bias(q_pos, k_pos, causal, window, k_valid)
+        p = torch.exp(s - lseb[..., None])
+        dp = torch.einsum("bhgnqd,bhkd->bhgnqk", dob, vblk)
+        ds = p * (dp - di[..., None]) * scale
+        dq = dq + torch.einsum("bhgnqk,bhkd->bhgnqd", ds, kblk)
+        dvs.append(torch.einsum("bhgnqk,bhgnqd->bhkd", p, dob))
+        dks.append(torch.einsum("bhgnqk,bhgnqd->bhkd", ds, qb))
+    return (dq.reshape(b, hkv, g, sq, dk).to(q.dtype),
+            torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The chunked attention with the reference's custom VJP: the forward
+    saves ``(q, k, v, out, lse)``, the backward recomputes the blocks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, bq, bk, n_keys):
+        out, lse = _flash_fwd(q, k, v, scale, causal, window, bq, bk,
+                              n_keys)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, window, bq, bk, n_keys)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -170,8 +243,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(b, sp, hkv, g, d).permute(0, 2, 3, 1, 4)
     kg = k.transpose(1, 2)
     vg = v.transpose(1, 2)
-    out = _flash_fwd(qg, kg, vg, scale, causal, window, bq, bk,
-                     n_keys=s if sp > s else None)
+    out = _Flash.apply(qg, kg, vg, scale, causal, window, bq, bk,
+                       s if sp > s else None)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sp, hq, v.shape[-1])
     return out[:, :s]
 

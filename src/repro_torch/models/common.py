@@ -7,13 +7,21 @@ draws from the same distributions as the reference with an explicit
 ``torch.Generator`` (the streams differ from ``jax.random``'s; tests
 carry the reference's params over through numpy instead).  The casts
 sit where the reference puts them: rmsnorm, RoPE and the SiLU of SwiGLU
-run in float32.  The reference's logical sharding ``dims`` are not
-kept: the port runs on one card.
+run in float32.  The init functions return params only: the
+reference's logical sharding ``dims`` are rebuilt from the leaf names
+where they are asked for (``model.abstract_init``).
+
+Params, optimizer state and checkpoints are nests of dicts, lists and
+dataclasses with tensors at the leaves.  :func:`keyed_leaves` names each
+leaf as ``jax.tree_util.keystr`` names it in the reference's tree, which
+stacks the periodic body along a leading ``[n_periods]`` dim where the
+port keeps a list of per-period nests.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +34,10 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 def _normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
             dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """N(0, std^2) in float32 on the generator's device, cast, moved."""
+    """N(0, std^2) in float32 on the generator's device, cast, moved.
+    On the ``meta`` device nothing is drawn (``model.abstract_init``)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) * std
     return x.to(device=device, dtype=dtype)
@@ -141,8 +152,34 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits [..., V] reduced in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
 # tree utilities
 # ---------------------------------------------------------------------------
+def merge(*pairs: Tuple[str, Tuple[PyTree, PyTree]]
+          ) -> Tuple[Dict[str, PyTree], Dict[str, PyTree]]:
+    """merge(("attn", (p, d)), ("mlp", (p, d))) -> ({...}, {...})"""
+    params: Dict[str, PyTree] = {}
+    dims: Dict[str, PyTree] = {}
+    for name, (p, d) in pairs:
+        params[name] = p
+        dims[name] = d
+    return params, dims
+
+
 def param_count(params: PyTree) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
@@ -152,12 +189,64 @@ def param_bytes(params: PyTree) -> int:
 
 
 def tree_leaves(tree: PyTree):
-    """Tensors of a nest of dicts and lists, in key order."""
+    """Tensors of a nest of dicts, lists and dataclasses, in key order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k])
     elif isinstance(tree, (list, tuple)):
         for t in tree:
             yield from tree_leaves(t)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from tree_leaves(getattr(tree, f.name))
     else:
         yield tree
+
+
+def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> PyTree:
+    """``fn`` over the leaves of ``tree`` (a nest of dicts and lists) and
+    the matching leaves of ``rest`` (nests of the same structure), in
+    :func:`tree_leaves`' order; ``is_leaf`` stops the descent at a
+    sub-nest."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+                for i, t in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like: PyTree, leaves: List[Any]) -> PyTree:
+    """The nest of ``like`` with ``leaves`` (in :func:`tree_leaves`'
+    order) at its leaves."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def keyed_leaves(tree: PyTree, prefix: str = ""
+                 ) -> Iterator[Tuple[str, Any]]:
+    """(name, leaf) for each leaf of the reference's layout of ``tree``.
+    ``name`` is ``jax.tree_util.keystr`` of the leaf in the reference's
+    tree: dict keys in sorted order as ``['key']``, a dataclass's fields
+    (``AdamWState``: step, m, v) by position as ``[<flat index i>]``, the
+    way JAX names the children of a node registered without keys.  A
+    list of nests of one structure (``params["stack"]``, one nest per
+    period) is one nest in the reference, each leaf stacked along a
+    leading dim: its ``leaf`` is the list of the periods' tensors."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from keyed_leaves(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, list):
+        per = [list(keyed_leaves(t, prefix)) for t in tree]
+        for i, (name, _) in enumerate(per[0] if per else []):
+            yield name, [p[i][1] for p in per]
+    elif dataclasses.is_dataclass(tree):
+        for i, f in enumerate(dataclasses.fields(tree)):
+            yield from keyed_leaves(getattr(tree, f.name),
+                                    f"{prefix}[<flat index {i}>]")
+    else:
+        yield prefix, tree

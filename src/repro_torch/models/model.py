@@ -21,25 +21,31 @@ embeddings ``frontend_embeds [B, P, D]`` are prepended to the token
 embeddings, and for audio the frame embeddings are the input (an audio
 model has no ``embed`` table and no decode path).  With ``mtp_depth``
 :func:`init_model` builds DeepSeek-V3's multi-token-prediction params
-(``mtp_layer``, ``mtp_proj``, ``mtp_norm``) as the reference does, so
-that its trees carry over; the MTP loss that uses them comes with the
-training slice (ROADMAP.md).
+(``mtp_layer``, ``mtp_proj``, ``mtp_norm``) as the reference does, and
+:func:`loss_fn` adds their loss.
 
-Entry points: :func:`init_model`, :func:`apply_model` (full-sequence
-logits), and for serving :func:`init_cache` / :func:`prefill` /
-:func:`decode_step`.
+Entry points: :func:`init_model` (:func:`abstract_init` on the ``meta``
+device), :func:`apply_model` (full-sequence ``(logits, aux)``, with
+gradients), :func:`loss_fn` (next-token cross entropy + MoE aux + MTP),
+and for serving :func:`init_cache` / :func:`prefill` /
+:func:`decode_step` (under ``torch.no_grad``).  In training the periodic
+body is rematerialised per period as ``cfg.remat`` says: ``"full"``
+recomputes it in the backward (``torch.utils.checkpoint``), ``"dots"``
+keeps the matmul outputs and recomputes the rest, ``"none"`` keeps all.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from ..configs.base import LayerSpec
 from ..device import DeviceLike, resolve_device
 from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
 from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
-                     norm, norm_init, swiglu)
+                     norm, norm_init, softmax_xent, swiglu, tree_map)
 from .mla import _latents, mla_apply, mla_cache_init, mla_decode, mla_init
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_cache_init, ssm_decode, ssm_init
@@ -158,7 +164,7 @@ def init_model(gen: torch.Generator, cfg: Any, *,
     draws run on the generator's device and are moved.  An audio model
     has no ``embed`` (its inputs are frame embeddings); with
     ``cfg.mtp_depth`` the multi-token-prediction params are built as in
-    the reference, for the training slice's loss."""
+    the reference, for :func:`loss_fn`'s MTP loss."""
     dev = resolve_device(device)
     prefix, period, n_periods = cfg.scan_plan()
     params: Dict[str, Any] = {}
@@ -204,50 +210,184 @@ def _head_out(cfg: Any, params: PyTree, x: torch.Tensor) -> torch.Tensor:
     return dense(params["head"], x)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep matmul outputs, recompute the rest (the
+    reference's ``checkpoint_dots``)."""
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in dots
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
                  positions: torch.Tensor, mode: str,
                  caches: Optional[PyTree] = None,
                  lengths: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None,
-                 kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Run the prefix and the periodic stack.  The layers' MoE aux losses
-    are dropped: every entry point here is inference (the training slice
-    sums them, as the reference's ``_stack_sweep`` does)."""
+                 kernels: Optional[Dict[str, Any]] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run the prefix and the periodic stack -> (x, in ``train`` mode the
+    sum of the MoE layers' aux losses in f32, else None: serving has no
+    use for it).  In ``train`` mode each period is rematerialised as
+    ``cfg.remat`` says (the prefix layers are not, as in the
+    reference)."""
     prefix, period, _ = cfg.scan_plan()
     kw = dict(positions=positions, mode=mode, lengths=lengths, impl=impl,
               kernels=kernels)
+    train = mode == "train"
+    aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                 if train else None)
     for i, spec in enumerate(prefix):
         c = None if caches is None else caches[f"prefix_{i}"]
-        x, _ = layer_apply(cfg, spec, params[f"prefix_{i}"], x, cache=c,
-                           **kw)
-    for n, p_period in enumerate(params["stack"]):
+        x, aux = layer_apply(cfg, spec, params[f"prefix_{i}"], x, cache=c,
+                             **kw)
+        if train and aux is not None:
+            aux_total = aux_total + aux
+
+    def period_body(p_period, c_period, x, aux_total):
         for j, spec in enumerate(period):
-            c = None
-            if caches is not None:
-                c = {key: t[n] for key, t in caches["stack"][f"l{j}"].items()}
-            x, _ = layer_apply(cfg, spec, p_period[f"l{j}"], x, cache=c,
-                               **kw)
-    return x
+            c = None if c_period is None else c_period[f"l{j}"]
+            x, aux = layer_apply(cfg, spec, p_period[f"l{j}"], x, cache=c,
+                                 **kw)
+            if train and aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
+
+    remat = train and cfg.remat != "none"
+    policy = {} if cfg.remat != "dots" else {
+        "context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+    for n, p_period in enumerate(params["stack"]):
+        c_period = None
+        if caches is not None:
+            c_period = {f"l{j}": {key: t[n] for key, t in
+                                  caches["stack"][f"l{j}"].items()}
+                        for j in range(len(period))}
+        if remat:
+            x, aux_total = ckpt.checkpoint(period_body, p_period, c_period,
+                                           x, aux_total, use_reentrant=False,
+                                           **policy)
+        else:
+            x, aux_total = period_body(p_period, c_period, x, aux_total)
+    return x, aux_total
 
 
-@torch.no_grad()
 def apply_model(cfg: Any, params: PyTree, tokens: Optional[torch.Tensor], *,
                 frontend_embeds: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None,
-                kernels: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """Full-sequence forward.  tokens [B, S] -> logits [B, S', V] (S' =
-    P + S with a VLM's ``frontend_embeds [B, P, D]``; for audio the
-    frames ``[B, S, D]`` are the input and ``tokens`` is not read).  The
-    reference returns ``(logits, aux)``; the MoE aux loss is a training
-    quantity, so it stays out of this inference entry point until the
-    training slice (the twins check it at ``moe_apply``, and
-    ``layer_apply`` returns it)."""
+                kernels: Optional[Dict[str, Any]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward, with gradients.  tokens [B, S] -> (logits
+    [B, S', V], the MoE layers' summed aux loss [] f32).  S' = P + S with
+    a VLM's ``frontend_embeds [B, P, D]``; for audio the frames
+    ``[B, S, D]`` are the input and ``tokens`` is not read.  Inference
+    callers take their own ``torch.no_grad()``."""
     x = _embed_in(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
-    x = _stack_sweep(cfg, params, x, positions=positions, mode="train",
-                     impl=impl, kernels=kernels)
-    return _head_out(cfg, params, x)
+    x, aux = _stack_sweep(cfg, params, x, positions=positions, mode="train",
+                          impl=impl, kernels=kernels)
+    return _head_out(cfg, params, x), aux
+
+
+def loss_fn(cfg: Any, params: PyTree, batch: Dict[str, torch.Tensor], *,
+            impl: Optional[str] = None,
+            kernels: Optional[Dict[str, Any]] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy + ``aux_loss_coef`` x the MoE aux loss
+    (+ ``mtp_loss_coef`` x the MTP loss) -> (loss, metrics).  ``batch``:
+    ``tokens``, ``labels`` [B, S], optional ``mask`` [B, S] and
+    ``frontend`` (a VLM's patch embeddings, whose rows are cut from the
+    logits, or the audio frames)."""
+    logits, aux = apply_model(cfg, params, batch["tokens"],
+                              frontend_embeds=batch.get("frontend"),
+                              impl=impl, kernels=kernels)
+    if cfg.family == "vlm" and "frontend" in batch:
+        logits = logits[:, batch["frontend"].shape[1]:, :]
+    xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    loss = xent + cfg.aux_loss_coef * aux
+    metrics = {"xent": xent, "aux": aux}
+    if cfg.mtp_depth:
+        mtp = _mtp_loss(cfg, params, batch)
+        loss = loss + cfg.mtp_loss_coef * mtp
+        metrics["mtp"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(cfg: Any, params: PyTree, batch: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction as the reference simplifies
+    it (depth 1): each token's embedding joined with the next one's, one
+    extra layer, predict t + 2."""
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens, cfg.dtype)
+    nxt = torch.roll(x, -1, dims=1)
+    h = dense(params["mtp_proj"], torch.cat([x, nxt], dim=-1))
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    spec = LayerSpec("attn" if cfg.family != "ssm" else "mamba", "dense")
+    h, _ = layer_apply(cfg, spec, params["mtp_layer"], h,
+                       positions=positions, mode="train")
+    h = norm(cfg.norm, params["mtp_norm"], h, cfg.norm_eps)
+    mtp_logits = _head_out(cfg, params, h)
+    labels2 = torch.roll(batch["labels"], -1, dims=1)
+    mask = torch.ones(labels2.shape, dtype=torch.float32,
+                      device=labels2.device)
+    mask[:, -2:] = 0.0
+    return softmax_xent(mtp_logits, labels2, mask)
+
+
+# the reference's logical dims: of a dense or expert-stack weight by its
+# parent's name (a dense bias takes the weight's output dim), and of the
+# other leaves by their own name
+_W_DIMS = {
+    "wq": ("embed", "q_proj"), "wk": ("embed", "kv_proj"),
+    "wv": ("embed", "kv_proj"), "wo": ("q_proj", "embed"),
+    "gate": ("embed", "mlp"), "up": ("embed", "mlp"), "down": ("mlp", "embed"),
+    "fc1": ("embed", "mlp"), "fc2": ("mlp", "embed"),
+    "router": ("embed", "router"), "shared_gate": ("embed", "mlp"),
+    "shared_up": ("embed", "mlp"), "shared_down": ("mlp", "embed"),
+    "w_gate": ("experts", "embed", "moe_mlp"),
+    "w_up": ("experts", "embed", "moe_mlp"),
+    "w_down": ("experts", "moe_mlp", "embed"),
+    "in_proj": ("embed", "ssm_in"), "out_proj": ("ssm_inner", "embed"),
+    "w_dq": ("embed", "q_lora"), "w_uq": ("q_lora", "q_proj"),
+    "w_dkv": ("embed", "kv_lora"), "w_uk": ("kv_lora", "q_proj"),
+    "w_uv": ("kv_lora", "q_proj"),
+    "head": ("embed", "vocab"), "mtp_proj": ("embed", "embed_out"),
+}
+_LEAF_DIMS = {
+    "emb": ("vocab", "embed"), "g": ("embed",), "b": ("embed",),
+    "conv_w": ("conv_k", "ssm_conv_ch"), "conv_b": ("ssm_conv_ch",),
+    "A_log": ("ssm_heads",), "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+    "norm_g": ("ssm_inner",),
+}
+
+
+def _dims(tree: PyTree, parent: str = "") -> PyTree:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _dims(v, k)
+        elif parent in _W_DIMS:
+            w = _W_DIMS[parent]
+            out[k] = w if k == "w" else (w[-1],)
+        else:
+            out[k] = _LEAF_DIMS[k]
+    return out
+
+
+def abstract_init(cfg: Any) -> Tuple[PyTree, PyTree]:
+    """(params on the ``meta`` device: the shapes and dtypes of
+    :func:`init_model`'s, nothing allocated, nothing drawn; the
+    reference's logical dims of each leaf, ``"stack"`` as one nest with a
+    leading ``"layers"`` dim)."""
+    params = init_model(torch.Generator(), cfg, device="meta")
+    dims = _dims({k: v for k, v in params.items() if k != "stack"})
+    dims["stack"] = tree_map(lambda t: ("layers",) + t,
+                             _dims(params["stack"][0]),
+                             is_leaf=lambda t: isinstance(t, tuple))
+    return params, dims
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +448,9 @@ def prefill(cfg: Any, params: PyTree, tokens: torch.Tensor, caches: PyTree,
     x = _embed_in(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
-    x = _stack_sweep(cfg, params, x, positions=positions, mode="prefill",
-                     caches=caches, impl=impl, kernels=kernels)
+    x, _ = _stack_sweep(cfg, params, x, positions=positions,
+                        mode="prefill", caches=caches, impl=impl,
+                        kernels=kernels)
     return _head_out(cfg, params, x[:, -1:, :]), caches
 
 
@@ -328,7 +469,7 @@ def decode_step(cfg: Any, params: PyTree, tokens: torch.Tensor,
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=tokens.device).expand(b).contiguous()
     x = embed(params["embed"], tokens, cfg.dtype)
-    x = _stack_sweep(cfg, params, x, positions=lengths[:, None],
-                     mode="decode", caches=caches, lengths=lengths,
-                     kernels=kernels)
+    x, _ = _stack_sweep(cfg, params, x, positions=lengths[:, None],
+                        mode="decode", caches=caches, lengths=lengths,
+                        kernels=kernels)
     return _head_out(cfg, params, x), caches

@@ -121,7 +121,7 @@ def test_smoke_model_matches_reference(models, arch):
         fe = None
     want = jax.jit(lambda p, t, f: japply(jcfg, p, t, frontend_embeds=f)[0])(
         jp, jnp.asarray(toks), None if fe is None else jnp.asarray(fe))
-    _close(apply_model(tcfg, tp, _t(toks).long(), frontend_embeds=_t(fe)),
+    _close(apply_model(tcfg, tp, _t(toks).long(), frontend_embeds=_t(fe))[0],
            want)
     if not jcfg.causal:
         return
@@ -149,7 +149,7 @@ def test_llava_with_patch_embeddings(models):
     toks, fe = _inputs(jcfg, 2, s=8)
     want = jax.jit(lambda p, t, f: japply(jcfg, p, t, frontend_embeds=f)[0])(
         jp, jnp.asarray(toks), jnp.asarray(fe))
-    got = apply_model(tcfg, tp, _t(toks).long(), frontend_embeds=_t(fe))
+    got = apply_model(tcfg, tp, _t(toks).long(), frontend_embeds=_t(fe))[0]
     assert tuple(got.shape) == (2, jcfg.frontend_len + 8, jcfg.vocab)
     _close(got, want)
     n = jcfg.frontend_len + 8
@@ -179,7 +179,7 @@ def test_hubert_noncausal_flash_hook(models):
     want, _ = japply(jcfg, jp, None, frontend_embeds=jnp.asarray(fe),
                      kernels=jops.model_kernels(jcfg, backend="pallas"))
     got = apply_model(tcfg, tp, None, frontend_embeds=_t(fe),
-                      kernels=kernels)
+                      kernels=kernels)[0]
     _close(got, want)
 
 

@@ -167,3 +167,20 @@ def test_chip_smoke_refuses_without_cuda_or_repo(no_cuda, tmp_path):
     for r in (here, alone):
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_train_entry_points_without_device_raise(no_cuda):
+    """The Trainer, the data loader and ``launch/train.py`` default to
+    the card."""
+    from repro_torch.configs.qwen2_0_5b import smoke
+    from repro_torch.data import DataLoader, SyntheticLMDataset
+    from repro_torch.runtime import TrainConfig, Trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(smoke(), TrainConfig(seq_len=8, global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataLoader(SyntheticLMDataset(vocab=8, seq_len=4, global_batch=1))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", "qwen2-0.5b", "--smoke", "--steps", "1"],
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr

@@ -56,7 +56,7 @@ def test_apply_model_logits(setup, s):
     jcfg, tcfg, jp, _, tp = setup
     toks = _tokens(s, 2, s, jcfg.vocab)
     want, _ = japply(jcfg, jp, jnp.asarray(toks))
-    _close(apply_model(tcfg, tp, _t(toks)), want)
+    _close(apply_model(tcfg, tp, _t(toks))[0], want)
 
 
 def test_apply_model_with_flash_hook(setup):
@@ -66,7 +66,7 @@ def test_apply_model_with_flash_hook(setup):
     toks = _tokens(11, 1, 24, jcfg.vocab)
     want, _ = japply(jcfg, jp, jnp.asarray(toks),
                      kernels=jops.model_kernels(jcfg, backend="pallas"))
-    _close(apply_model(tcfg, tp, _t(toks), kernels=model_kernels(tcfg)),
+    _close(apply_model(tcfg, tp, _t(toks), kernels=model_kernels(tcfg))[0],
            want)
 
 
@@ -258,7 +258,7 @@ def test_config_variants_logits(name, s):
     tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     toks = _tokens(s + 1, 2, s, jcfg.vocab)
     want, _ = japply(jcfg, jp, jnp.asarray(toks))
-    _close(apply_model(tcfg, tp, _t(toks)), want)
+    _close(apply_model(tcfg, tp, _t(toks))[0], want)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +296,7 @@ def test_moe_apply_model_logits(moe_setup, kernels):
     want, aux = fns["apply"](jp, jnp.asarray(toks))
     assert float(aux) > 0
     got = apply_model(tcfg, tp, _t(toks),
-                      kernels=model_kernels(tcfg) if kernels else None)
+                      kernels=model_kernels(tcfg) if kernels else None)[0]
     _close(got, want)
 
 
@@ -364,4 +364,4 @@ def test_converter_carries_shared_experts():
             tree["stack"]["l0"]["ffn"][key]["w"][1])
     toks = _tokens(33, 2, 12, jcfg.vocab)
     want, _ = japply(jcfg, jp, jnp.asarray(toks))
-    _close(apply_model(tcfg, tp, _t(toks)), want)
+    _close(apply_model(tcfg, tp, _t(toks))[0], want)

@@ -168,7 +168,7 @@ def test_greedy_matches_full_forward(dense_setup):
     r = td[0]
     toks = list(r.prompt)
     for _ in range(len(r.output)):
-        lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])
+        lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])[0]
         toks.append(int(torch.argmax(lg[0, -1])))
     assert toks[len(r.prompt):] == r.output
     _same(jd, td)
@@ -311,7 +311,7 @@ def test_ssm_greedy_matches_full_forward(ssm_setup):
     r = eng.run_until_drained()[0]
     toks = list(r.prompt)
     for _ in range(len(r.output)):
-        lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])
+        lg = apply_model(tcfg, tp, torch.as_tensor(toks)[None])[0]
         toks.append(int(torch.argmax(lg[0, -1])))
     assert toks[len(r.prompt):] == r.output
 

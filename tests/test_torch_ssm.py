@@ -194,7 +194,7 @@ def test_prefill_decode_consistency(name):
     jl_dec, jc = jax.jit(lambda p, t, c, n: jdecode(jcfg, p, t, c, n))(
         jp, jnp.asarray(nxt.numpy()), jc, jnp.int32(S))
     full = torch.cat([_t(toks), nxt], 1)
-    tl_full = apply_model(tcfg, tp, full)
+    tl_full = apply_model(tcfg, tp, full)[0]
     jl_full, _ = jax.jit(lambda p, t: japply(jcfg, p, t))(
         jp, jnp.asarray(full.numpy()))
     for got, want in ((tl_pre[:, -1], tl_full[:, S - 1]),
