@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA Hopper card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve ARCH [ARCH ...]   # phases 1, 2, serve
 
 Phases, in order; the first that fails raises and the script exits
 non-zero:
@@ -89,12 +90,39 @@ non-zero:
    head shape.  Each step prints its host ms, tokens/s and model flop/s,
    each run its peak memory, one profiled step its busy share.
 
+16. the mesh paths, every rank on this card (the port's rank-stacked
+   mesh; each phase counts the calls of its mesh branch, so a silent
+   fall-through to the meshless path fails): pipeline parallelism,
+   qwen2-0.5b at full width and depth over (pipe=4, data=2), batch 8 x
+   1024 in 8 micro-batches, ``pp_loss`` forward and backward through
+   GPipe over LCX puts against ``loss_fn`` (and in f32 at 4 layers the
+   logits and every gradient against ``apply_model`` / ``loss_fn``);
+   GPipe over 4 stages with the stage device frozen before tick 0 (one
+   failover, outputs equal to the sequential stack); the
+   context-parallel decode, qwen2-0.5b under (data=2, model=4) with
+   ``decode_rules`` (sequence-sharded cache), a flash prefill of 8 x 512
+   and 32 ticks with and without the mesh; the resident-expert decode
+   with the context-parallel MLA decode, deepseek-v3-671b cut to 5
+   layers, 32 experts resident a rank, 16 ticks (the grouped matmul 3
+   times per MoE layer and tick), its MoE layer bit-equal to the
+   meshless decode at B = 8, where their capacities agree (this one
+   right after phase 12's DeepSeek-V3 serve, on its params); expert
+   parallelism through
+   ``moe_apply``, qwen3-moe-30b-a3b's prefill of 8 x 512 (512 tokens a
+   rank, C = 40; the grouped matmul is timed at that shape with the
+   kernel checks); each with its f32 check
+   against the meshless path at a cut depth; ``compressed_psum`` of
+   qwen2-0.5b's full gradient over 4 stacked ranks; and
+   ``Trainer(mesh=(data=4, model=2))`` for 2 steps, ``remesh`` to (2, 2)
+   and 2 more, losses bitwise equal to an unmeshed run's.
+
 Phase 3 also checks flash at internlm2-20b's, command-r-plus-104b's,
 llava's and hubert's attention shapes (head dim 80, not causal) and the
 grouped matmul at deepseek-v3's expert shape (256 experts, 7168 <-> 2048).
 
 Output: one line per check, then a ``{"kernels": [...]}`` JSON line
-(flash attention, SSD scan, ring all-gather, grouped matmul), the card's
+(flash attention, SSD scan, ring all-gather, grouped matmul; the flash
+and grouped-matmul launches of the mesh paths counted in), the card's
 name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX: the reference package is not used here.
@@ -179,6 +207,15 @@ DSV3_CAPS = (8, 24)
 # depth cuts of the full-width paths that do not fit one card whole: the
 # layers kept (DeepSeek-V3: its 3 dense prefix layers and 2 MoE layers)
 DSV3_SERVE_LAYERS, CMDR_SERVE_LAYERS = 5, 8
+SERVE_CUTS = {
+    "deepseek-v3-671b": dict(
+        n_layers=DSV3_SERVE_LAYERS,
+        cut="its 3 dense prefix layers and 2 MoE layers, with the MTP "
+        "params; the whole model, ~1.3 TB in bf16, does not fit one card"),
+    "command-r-plus-104b": dict(
+        n_layers=CMDR_SERVE_LAYERS,
+        cut="the whole model, ~208 GB in bf16, does not fit one card"),
+}
 # the f32 greedy checks' cuts: depth, and starcoder2's window cut so that
 # the 61-token prompt and its 16 new tokens cross it
 GREEDY_CUTS = {
@@ -207,6 +244,38 @@ TRAIN_LOSS_RTOL = 1e-4
 # bf16 products summed over other token sets (the int8 accumulator
 # carries its quantisation error in f32, so it sums as the f32 one does)
 ACCUM_NORM_RTOL = 5e-2
+# parallel execution on rank-stacked meshes (every rank on this card):
+# pipeline parallelism over (pipe=4, data=2), batch 8 x 1024 in 8
+# micro-batches; its f32 check at 4 layers (one period a stage).  The bf16
+# pipeline loss sums the same bf16 products in micro-batches of 1 against
+# the whole batch's; the f32 bound is the reference's own
+# (tests/test_multidevice.py)
+PP_MESH = ((4, 2), ("pipe", "data"))
+PP_BATCH, PP_SEQ, PP_MICRO, PP_CHECK_LAYERS = 8, 1024, 8, 4
+PP_LOSS_RTOL, PP_CHECK_TOL = 1e-2, 1e-4
+# GPipe with the stage device frozen (f32; tests/test_failover.py's bound)
+GPIPE_TOL = 1e-5
+# the decode and expert-parallel meshes (data=2, model=4): 8 sequences,
+# qwen2's prompt of 512 and 32 ticks, DeepSeek-V3's prompt of 64 and 16
+# ticks; the f32 checks (2 layers, or the smoke config) prefill 15 tokens
+# and decode 4, rows 15-18 crossing from rank 1's shard of 16 to rank 2's
+CP_MESH = ((2, 4), ("data", "model"))
+CP_BATCH, CP_PROMPT, CP_SMAX, CP_TICKS = 8, 512, 1024, 32
+CP_CHECK_LAYERS, CP_CHECK_PROMPT, CP_CHECK_TICKS, CP_CHECK_SMAX = 2, 15, 4, 64
+RES_BATCH, RES_PROMPT, RES_TICKS = 8, 64, 16
+# (B, S) of the flash prefills on the mesh paths (cp decode, ep mesh)
+MESH_PREFILL = (CP_BATCH, CP_PROMPT)
+EP_MESH_BATCH, EP_MESH_SEQ = MESH_PREFILL
+# f32 bounds of the mesh paths against the meshless ones: the reference's
+# own (tests/test_multidevice.py)
+MESH_DECODE_TOL, EP_MESH_TOL = 1e-4, 5e-5
+# compressed_psum over 4 stacked ranks; the trainer's mesh and the ranks
+# its remesh loses
+PSUM_RANKS = 4
+TRAIN_MESH = ((4, 2), ("data", "model"))
+# the params after two sharded steps (tests/test_multidevice.py)
+TRAIN_MESH_PARAM_TOL = 2e-4
+TRAIN_MESH_LOST, TRAIN_MESH_STEPS = 4, 2
 # the attention's custom backward against autograd through attention_full
 # in f32 (no TF32): the same products summed in other orders; each of out,
 # dq, dk, dv within 1e-5 of its reference's largest magnitude (the CPU
@@ -254,14 +323,28 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def trace(fn):
-    """Run ``fn`` once under torch.profiler: (wall ms, the card's kernel
-    events)."""
+# A window that recorded no kernel is traced again with ``fn`` started
+# later inside it, after each of these host delays (s): the card's
+# timestamps can lag the host's (by up to 1.2 s, kineto's "GPU op
+# timestamp < runtime timestamp" warnings on this machine), and the
+# profiler drops a kernel whose timestamp falls before the window opened,
+# so a short window can come back empty; a later launch is kept
+TRACE_DELAYS = (0.0, 0.1, 0.5, 1.5, 3.0)
+
+
+def trace(fn, cpu=True, delay=0.0):
+    """Run ``fn`` once under torch.profiler, ``delay`` seconds into the
+    window: (wall ms of ``fn``, the card's kernel events).  ``cpu=False``
+    traces the card alone: a window of ~10^5 host operations (an autograd
+    step in micro-batches) takes the profiler a minute to aggregate with
+    them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if cpu else []) \
+        + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        time.sleep(delay)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -270,14 +353,23 @@ def trace(fn):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _events(fn):
-    """The card's kernel events of one traced run of ``fn``; a window that
-    recorded none is traced again, up to three times, then fails."""
-    for _ in range(3):
-        _, kern = trace(fn)
+def _traced(fn, cpu=True, delays=TRACE_DELAYS):
+    """``trace`` tried after each of ``delays`` until a window records a
+    kernel; the last try's result if none did."""
+    for delay in delays:
+        wall, kern = trace(fn, cpu, delay)
         if sum(e.count for e in kern):
-            return kern
-    raise AssertionError("the profiler recorded no kernel in three windows")
+            break
+    return wall, kern
+
+
+def _events(fn):
+    """The card's kernel events of one traced run of ``fn``; fails when
+    no window recorded one."""
+    kern = _traced(fn)[1]
+    require(sum(e.count for e in kern) > 0, f"the profiler recorded no "
+            f"kernel in {len(TRACE_DELAYS)} windows")
+    return kern
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -388,42 +480,77 @@ def _qkv(gen, b, hq, hkv, sq, sk, dk, dv, dtype, seq_major=False):
     return mk(b, hq, sq, dk), mk(b, hkv, sk, dk), mk(b, hkv, sk, dv)
 
 
-def _flash_times(gen, hq, hkv, d, lens, causal=True):
-    """Mean device ms per call over ``lens`` (B = 1, bf16): kernel, plain
-    version, SDPA, the bound, and the kernel with host launch gaps; and
-    what bounds it."""
+def _flash_shape_times(gen, b, hq, hkv, s, d, causal=True):
+    """Device ms per call at one (B, Hq, Hkv, S, D) bf16 shape: kernel,
+    plain version, SDPA, the (operations, bytes) bound, and the kernel
+    with host launch gaps."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    rows = []
-    for s in lens:
-        q, k, v = _qkv(gen, 1, hq, hkv, s, s, d, d, torch.bfloat16)
-        launch = lambda: fa.flash_attention(q, k, v, causal=causal)
-        rows.append((
-            device_ms(launch),
+    q, k, v = _qkv(gen, b, hq, hkv, s, s, d, d, torch.bfloat16)
+    launch = lambda: fa.flash_attention(q, k, v, causal=causal)
+    bound = flash_bound_ms(hq, hkv, s, s, d, causal, "bfloat16")
+    return (device_ms(launch),
             device_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                        causal=causal)),
             device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)),
-            flash_bound_ms(hq, hkv, s, s, d, causal, "bfloat16"),
-            cuda_ms(launch)))
-    n = len(rows)
-    t_ops = sum(r[3][0] for r in rows)
-    t_bytes = sum(r[3][1] for r in rows)
-    return (sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n,
-            sum(r[2] for r in rows) / n, sum(max(r[3]) for r in rows) / n,
-            sum(r[4] for r in rows) / n,
-            "operations" if t_ops >= t_bytes else "bytes")
+            (bound[0] * b, bound[1] * b), cuda_ms(launch))
+
+
+def _flash_times(gen, hq, hkv, d, lens, causal=True):
+    """Mean device ms per call over ``lens`` (B = 1, bf16): kernel, plain
+    version, SDPA, the bound, and the kernel with host launch gaps; and
+    what bounds it."""
+    rows = [_flash_shape_times(gen, 1, hq, hkv, s, d, causal) for s in lens]
+    k_ms, p_ms, l_ms, b_ms, bound_by = _flash_mean([(r, 1) for r in rows])
+    return (k_ms, p_ms, l_ms, b_ms, sum(r[4] for r in rows) / len(rows),
+            bound_by)
+
+
+def _flash_mean(entries):
+    """(kernel, plain, SDPA, bound ms, what bounds it) per call, averaged
+    over ``entries``, a list of (:func:`_flash_shape_times` of a shape,
+    the calls at that shape); the bound of each call the larger of its
+    two times."""
+    n = sum(c for _, c in entries)
+    mean = lambda f: sum(f(t) * c for t, c in entries) / n
+    ops, nbytes = mean(lambda t: t[3][0]), mean(lambda t: t[3][1])
+    return (mean(lambda t: t[0]), mean(lambda t: t[1]), mean(lambda t: t[2]),
+            mean(lambda t: max(t[3])),
+            "operations" if ops >= nbytes else "bytes")
+
+
+def flash_row(entries, path_err, launches):
+    """The flash kernel's row of the kernels line: times per launch
+    averaged over every launch counted, ``entries`` a list of (the times
+    at a shape, the launches at that shape)."""
+    calls = sum(c for _, c in entries)
+    require(calls == launches, f"flash row: {calls} launches timed, "
+            f"{launches} counted")
+    k_ms, p_ms, l_ms, b_ms, bound_by = _flash_mean(entries)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": launches, "max_abs_err": path_err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": bound_by, "library_ms": l_ms,
+    }
 
 
 def phase_kernel_check(serve_lens, moe_lens):
-    """Returns the flash kernel's row of the kernels line (without the
-    launch count, which comes from the serve phase): qwen2-0.5b's shape
-    over its serve prompt lengths.  Also checks and times the kernel at
-    qwen3-moe-30b-a3b's attention shape over ``moe_lens``, at
-    internlm2-20b's and command-r-plus-104b's over ``serve_lens``, at
-    llava-next-mistral-7b's over its 576 patches and 64 tokens, and at
-    hubert-xlarge's (head dim 80, not causal) over 1024 frames."""
+    """Checks the flash kernel against its plain version and times it at
+    the shapes its counted launches run: qwen2-0.5b's over its serve
+    prompt lengths (B = 1), and B = 8 x 512 at qwen2-0.5b's (the
+    context-parallel prefill) and qwen3-moe-30b-a3b's (the EP prefill).
+    Returns the largest bf16 error at those shapes and {serve prompt
+    length, "cp" or "ep": the times at that shape} for the kernels line.
+    Also checks and times the kernel at qwen3-moe-30b-a3b's attention
+    shape over ``moe_lens``, at internlm2-20b's and
+    command-r-plus-104b's over ``serve_lens``, at llava-next-mistral-7b's
+    over its 576 patches and 64 tokens, and at hubert-xlarge's (head dim
+    80, not causal) over 1024 frames."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
@@ -447,6 +574,10 @@ def phase_kernel_check(serve_lens, moe_lens):
     strided += [(1, 32, 4, s, s, 128, 128, True, bf16) for s in (61, 441)]
     strided += [(1, 14, 2, 100, 100, 64, 64, True, f32),
                 (1, 32, 4, 61, 61, 128, 128, True, f32)]
+    # the mesh phases' prefills of 8 x 512 (qwen2-0.5b, qwen3-moe-30b-a3b)
+    strided += [(MESH_PREFILL[0], hq, hkv, MESH_PREFILL[1],
+                 MESH_PREFILL[1], d, d, True, bf16)
+                for hq, hkv, d in ((14, 2, 64), (32, 4, 128))]
     # the dense, VLM and audio paths' shapes: their serve prompts, the
     # VLM's 576 + 64 rows, the encoder's 1024 frames, and the f32 checks'
     arch_shape = {}
@@ -484,27 +615,35 @@ def phase_kernel_check(serve_lens, moe_lens):
             f"max_abs_err={err.max().item():.3e} (atol {atol}, rtol {rtol})"
             f" {'ok' if ok else 'FAIL'}")
         require(ok, "flash kernel disagrees with its plain version")
-        if dt == bf16 and (b, hq, hkv, dk) == (1, 14, 2, 64) \
-                and not seq_major:
+        # the shapes of the launches the kernels line counts
+        if dt == bf16 and ((hq, hkv, dk) == (14, 2, 64)
+                           or (b, sq) == MESH_PREFILL):
             path_err = max(path_err, err.max().item())
 
-    # device time at the shapes the serve phase gives the kernel: one
-    # (B=1, Hq=14, Hkv=2, S, D=64) causal bf16 call per prompt length
-    k_ms, p_ms, l_ms, b_ms, host, bound_by = _flash_times(
-        gen, 14, 2, 64, serve_lens)
+    # device time at the shapes the counted launches run: one (B=1,
+    # Hq=14, Hkv=2, S, D=64) causal bf16 call per serve prompt length,
+    # and the mesh phases' 8 x 512 prefills
+    times = {s: _flash_shape_times(gen, 1, 14, 2, s, 64)
+             for s in sorted(set(serve_lens))}
     n = len(serve_lens)
-    row = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": None, "max_abs_err": path_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": bound_by, "library_ms": l_ms,
-    }
+    k_ms, p_ms, l_ms, b_ms, bound_by = _flash_mean(
+        [(times[s], 1) for s in serve_lens])
+    host = sum(times[s][4] for s in serve_lens) / n
     log(f"flash device time over the {n} serve prompt lengths (mean per "
         f"call, ms): kernel {k_ms:.5f}, plain {p_ms:.5f}, sdpa {l_ms:.5f}, "
         f"bound {b_ms:.6f} ({bound_by}); kernel with host launch gaps "
         f"(CUDA events) {host:.5f}")
+    b, s = MESH_PREFILL
+    for key, arch, (hq, hkv, d) in (("cp", "qwen2-0.5b", (14, 2, 64)),
+                                    ("ep", "qwen3-moe-30b-a3b",
+                                     (32, 4, 128))):
+        t = times[key] = _flash_shape_times(gen, b, hq, hkv, s, d)
+        log(f"flash device time at {arch}'s {b} x {s} mesh prefill (Hq={hq}"
+            f", Hkv={hkv}, D={d}; ms a call): kernel {t[0]:.5f} "
+            f"({t[0] / t[2]:.2f}x sdpa), plain {t[1]:.5f}, sdpa {t[2]:.5f}, "
+            f"bound {max(t[3]):.6f} "
+            f"({'operations' if t[3][0] >= t[3][1] else 'bytes'}); kernel "
+            f"with host launch gaps (CUDA events) {t[4]:.5f}")
     k_ms, p_ms, l_ms, b_ms, host, bound_by = _flash_times(
         gen, 32, 4, 128, moe_lens)
     log(f"flash device time at qwen3-moe-30b-a3b's attention shape (Hq=32, "
@@ -536,7 +675,7 @@ def phase_kernel_check(serve_lens, moe_lens):
         f"{l_ms:.5f}, bound {bound:.6f}")
     log(f"flash checks and timing launched the kernel "
         f"{fa.launches - launches0} times (not counted below)")
-    return row
+    return path_err, times
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype, groups=None):
@@ -773,17 +912,18 @@ def _gmm_layer_times(gen, label, e, d, f, caps):
     return times
 
 
-def phase_gmm_check(prefill_caps, ep_cap, ds_caps):
+def phase_gmm_check(prefill_caps, ep_cap, ds_caps, mesh_caps=()):
     """The grouped-matmul kernel against its plain version at the serving
     shapes of qwen3-moe-30b-a3b (decode C = 8, the prefills' capacities
     ``prefill_caps``, the EP phase's ep * C = 8 * ``ep_cap``; gate/up
     [2048 -> 768] and down [768 -> 2048]) and ragged ones, in bf16 and
     f32, and at deepseek-v3-671b's (256 experts, [7168 -> 2048] and back,
     C = 8 and 24); then timed at each serving capacity of both (``ds_caps``
-    for deepseek-v3).  Returns qwen3-moe's {C: (kernel, plain, bmm,
-    operations bound, bytes bound)} ms summed over the three projections
-    of a layer, the largest bf16 error at its serving shapes, and
-    deepseek-v3's times."""
+    for deepseek-v3) and, for qwen3-moe, at the rows an expert gets in
+    the mesh's expert parallelism (``mesh_caps``).  Returns qwen3-moe's
+    {C: (kernel, plain, bmm, operations bound, bytes bound)} ms summed
+    over the three projections of a layer, the largest bf16 error at its
+    serving shapes, and deepseek-v3's times."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import moe_gmm as gm
@@ -810,7 +950,7 @@ def phase_gmm_check(prefill_caps, ep_cap, ds_caps):
                           DSV3_CAPS[1] // DSV3_CAPS[0], ds_d, ds_f)
 
     times = _gmm_layer_times(gen, "qwen3-moe-30b-a3b", MOE_E, MOE_D, MOE_F,
-                             caps)
+                             sorted(set(caps) | set(mesh_caps)))
     ds_times = _gmm_layer_times(gen, "deepseek-v3-671b", ds_e, ds_d, ds_f,
                                 sorted(set(ds_caps)))
     log(f"gmm checks and timing launched the kernel "
@@ -818,12 +958,15 @@ def phase_gmm_check(prefill_caps, ep_cap, ds_caps):
     return times, path_err, ds_times
 
 
-def gmm_row(times, path_err, prefill_caps, ticks, launches):
+def gmm_row(entries, path_err, launches):
     """The grouped matmul's row of the kernels line: times per launch,
-    averaged over the serve phase's launches (each prefill's capacity,
-    and C = 8 for every decode tick)."""
-    calls = list(prefill_caps) + [8] * ticks
-    mean = lambda i: sum(times[c][i] for c in calls) / (3 * len(calls))
+    averaged over every launch counted, ``entries`` a list of (one MoE
+    layer's (kernel, plain, bmm, operations bound, bytes bound) ms at its
+    shape, the MoE layer calls at that shape)."""
+    calls = sum(n for _, n in entries)
+    require(3 * calls == launches, f"gmm row: {3 * calls} launches timed, "
+            f"{launches} counted")
+    mean = lambda i: sum(t[i] * n for t, n in entries) / (3 * calls)
     return {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -845,12 +988,16 @@ def _prompts(vocab):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
 
 
-def _profiled(label, fn, n_kernels=6):
+def _profiled(label, fn, n_kernels=6, cpu=True):
     """Print ``fn``'s wall time, the device's busy and idle share,
     launches, and the kernels that took the most device time."""
-    wall, kern = trace(fn)
+    wall, kern = _traced(fn, cpu, TRACE_DELAYS[:3])
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     launches = sum(e.count for e in kern)
+    if not launches:
+        log(f"profile {label}: busy share not measured (the profiler "
+            f"recorded no kernel in 3 windows)")
+        return
     log(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
         f"{launches} kernel launches")
@@ -929,11 +1076,14 @@ class _RecordRoutes:
         return [int(i.unique().numel()) for i in self.ids]
 
 
-def phase_serve(arch, prompts, cut=None, **overrides):
+def phase_serve(arch, prompts, cut=None, then=None, **overrides):
     """Serve ``prompts`` at ``arch``'s full width; ``overrides`` cut the
     config's depth where the whole model does not fit the card, and
-    ``cut`` says so.  Returns the launch counts of the run, each
-    request's tokens and the engine's stats."""
+    ``cut`` says so.  ``then(cfg, params)``, a phase of its own, runs
+    after on the same params (drawing a second copy of a 55-61 GB model
+    would cost the time again and need the card's whole memory free).
+    Returns the launch counts of the run, each request's tokens, the
+    engine's stats and what ``then`` returned."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import model_kernels
@@ -1019,7 +1169,13 @@ def phase_serve(arch, prompts, cut=None, **overrides):
             f"{cfg.n_experts_per_tok}); the grouped matmul reads all "
             f"{cfg.n_experts} experts' weights, {read} bytes a tick")
     phase_profile(cfg, params, kernels, prompts)
-    return counts, {r.rid: list(r.output) for r in done}, eng.stats
+    tokens, stats = {r.rid: list(r.output) for r in done}, eng.stats
+    after = None
+    if then is not None:
+        del eng, done
+        release()
+        after = then(cfg, params)
+    return counts, tokens, stats, after
 
 
 def _greedy(cfg, params, prompt, n_new):
@@ -1594,12 +1750,15 @@ def _collective(label, dev, fn, want_transfers, reps=3):
     moved = dev.stats["transfers"] - before
     require(moved == want_transfers,
             f"{label}: {moved} transfers, expected {want_transfers}")
-    wall, kern = trace(lambda: [fn() for _ in range(reps)])
+    wall, kern = _traced(lambda: [fn() for _ in range(reps)],
+                         delays=TRACE_DELAYS[:3])
     busy = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    share = (f"device busy {busy / reps:.3f} ms ({100 * busy / wall:.1f}%, "
+             f"{n_kern} kernels recorded)" if n_kern else
+             "device busy not measured (no kernel recorded in 3 windows)")
     log(f"collective {label}: host {ms:.3f} ms; {reps} profiled reruns "
-        f"wall {wall / reps:.3f} ms each, device busy {busy / reps:.3f} ms "
-        f"({100 * busy / wall:.1f}%, {sum(e.count for e in kern)} kernels "
-        f"recorded); {moved} transfers")
+        f"wall {wall / reps:.3f} ms each, {share}; {moved} transfers")
     return out
 
 
@@ -2133,6 +2292,621 @@ def phase_train():
             f"a TPU-kernel port launched during training: {counts}")
 
 
+# ---------------------------------------------------------------------------
+# parallel execution on rank-stacked meshes (every rank on this card)
+# ---------------------------------------------------------------------------
+class _CountCalls:
+    """Count the calls of module-level functions made inside the block;
+    the mesh branches look them up on their module at call time, so a
+    silent fall-through to the meshless path shows as no call."""
+
+    def __init__(self, *targets):
+        self.targets, self.calls = targets, {}
+
+    def __enter__(self):
+        self._orig = []
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self._orig.append((mod, name, fn))
+            self.calls[name] = 0
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
+def _mesh(spec):
+    from repro_torch.parallel import Mesh
+    return Mesh(*spec)
+
+
+def _tokens(seed, vocab, b, s):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, vocab, (b, s)), device="cuda")
+
+
+def _grads(fn, params):
+    """(fn(params) detached, d fn / d every param leaf)."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        out = fn(params)
+        grads = torch.autograd.grad(out, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return out.detach(), grads
+
+
+def phase_pp():
+    """Pipeline parallelism: qwen2-0.5b at full width and depth over the
+    (pipe=4, data=2) mesh, 6 periods a stage, batch 8 x 1024 in 8
+    micro-batches: ``pp_loss`` forward and backward through the GPipe
+    schedule over LCX puts, timed; its puts, busy share and peak memory;
+    the bf16 loss against ``loss_fn``'s; then in f32 cut to 4 layers the
+    logits and every gradient against ``apply_model`` and ``loss_fn``."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.models import apply_model, init_model, loss_fn
+    from repro_torch.parallel import use_mesh
+    from repro_torch.parallel.pp import pp_apply_model, pp_loss
+
+    mesh = _mesh(PP_MESH)
+    cfg = get_config("qwen2-0.5b")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    batch = to_device(make_batch(cfg, PP_SEQ, PP_BATCH), torch.device("cuda"))
+    n = mesh.shape["pipe"]
+    log(f"pp: {cfg.name} full width, {cfg.n_layers} layers over mesh "
+        f"{mesh.shape} ({cfg.n_layers // n} periods a stage), batch "
+        f"{PP_BATCH} x {PP_SEQ} in {PP_MICRO} micro-batches, "
+        f"{str(cfg.dtype)[6:]}")
+
+    def step():
+        with use_mesh(mesh):
+            return _grads(lambda p: pp_loss(cfg, p, batch, mesh=mesh,
+                                            n_micro=PP_MICRO), params)
+
+    _, warm_ms = _host_ms(step)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with _RecordRuntimes() as rec:
+        (loss, grads), ms = _host_ms(step)
+    puts = [d.stats["transfers"] for rt in rec.made if rt.name == "gpipe"
+            for d in rt.devices()]
+    peak = torch.cuda.max_memory_allocated()
+    require(len(rec.made) == 1 and sum(puts) == PP_MICRO + n - 1,
+            f"pp: runtimes {[rt.name for rt in rec.made]}, puts {puts}")
+    del grads
+    _profiled(f"{cfg.name} pp_loss forward + backward", step, cpu=False)
+    with torch.no_grad():
+        ref = loss_fn(cfg, params, batch)[0]
+    rel = abs(float(loss) - float(ref)) / abs(float(ref))
+    log(f"pp: pp_loss forward + backward host {ms:.3f} ms (the first, "
+        f"warm-up run {warm_ms:.3f} ms) "
+        f"({PP_BATCH * PP_SEQ / ms * 1e3:.1f} tokens/s); LCX puts {sum(puts)}"
+        f" (M + n - 1 = {PP_MICRO + n - 1} ticks, one put each); "
+        f"max_memory_allocated {peak} bytes; loss {float(loss):.6f}, "
+        f"loss_fn {float(ref):.6f} (relative difference {rel:.3e}, bound "
+        f"{PP_LOSS_RTOL}); card {smi()}")
+    require(rel <= PP_LOSS_RTOL, "pp_loss differs from loss_fn")
+    del params, batch
+    release()
+    t0 = time.perf_counter()
+
+    cfg = dataclasses.replace(cfg, n_layers=PP_CHECK_LAYERS,
+                              dtype=torch.float32, param_dtype=torch.float32)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    batch = to_device(make_batch(cfg, PP_SEQ, PP_BATCH), torch.device("cuda"))
+    with use_mesh(mesh), torch.no_grad():
+        got = pp_apply_model(cfg, params, batch["tokens"], mesh=mesh,
+                             n_micro=PP_MICRO)
+    with torch.no_grad():
+        want = apply_model(cfg, params, batch["tokens"])[0]
+    logit_err = float((got - want).abs().max())
+    del got, want
+    with use_mesh(mesh):
+        pl, pg = _grads(lambda p: pp_loss(cfg, p, batch, mesh=mesh,
+                                          n_micro=PP_MICRO), params)
+    rl, rg = _grads(lambda p: loss_fn(cfg, p, batch)[0], params)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(pg, rg))
+    log(f"pp check: f32, {PP_CHECK_LAYERS} layers, 1 period a stage: "
+        f"logits max_abs_err {logit_err:.3e}, every gradient max_abs_err "
+        f"{grad_err:.3e} (bound {PP_CHECK_TOL}); loss {float(pl):.6f} vs "
+        f"{float(rl):.6f}; {time.perf_counter() - t0:.1f} s")
+    require(logit_err <= PP_CHECK_TOL and grad_err <= PP_CHECK_TOL,
+            "pipeline-parallel logits or gradients differ")
+
+
+def phase_gpipe_failover():
+    """GPipe over 4 stages in f32 with the stage device frozen before
+    tick 0 (tests/test_failover.py's case) at qwen2-0.5b's width: the
+    heartbeat migrates its transfers to the warm standby, the outputs
+    equal the sequential stack, one failover."""
+    import torch
+    import repro_torch.core as lcx
+    from repro_torch.parallel.pipeline import gpipe
+
+    from repro_torch.configs.base import get_config
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, d = 4, get_config("qwen2-0.5b").d_model
+    ws = torch.randn((n, d, d), generator=gen, device="cuda") * d ** -0.5
+    micro = torch.randn((6, 8, d), generator=gen, device="cuda")
+    rt = lcx.Runtime(name="gp-fo")
+    dev = rt.device(axis="pipe")
+    dev.freeze()
+    out, ms = _host_ms(lambda: gpipe(lambda w, x: torch.tanh(x @ w), ws,
+                                     micro, axis="pipe", runtime=rt,
+                                     device=dev, failover=True))
+    ref = micro
+    for i in range(n):
+        ref = torch.tanh(ref @ ws[i])
+    err = float((out - ref[None]).abs().max())
+    log(f"gpipe failover: {n} stages x [{d}, {d}] f32, 6 micro-batches of "
+        f"8; device frozen before tick 0: host {ms:.3f} ms, failovers "
+        f"{rt.failover_stats['failovers']}, migrated "
+        f"{dev.migrated_to is not None}; outputs vs the sequential stack "
+        f"max_abs_err {err:.3e} (bound {GPIPE_TOL})")
+    require(err <= GPIPE_TOL and rt.failover_stats["failovers"] == 1
+            and not dev.alive and dev.migrated_to is not None,
+            "gpipe failover")
+
+
+def _decode_ticks(cfg, params, nxt, caches, start, ticks, kernels, mesh,
+                  rules):
+    """``ticks`` greedy decode steps from ``nxt`` (under the mesh when
+    given) -> (tokens [B, ticks], host ms of each tick)."""
+    import contextlib
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.parallel import use_mesh
+    toks, times = [], []
+    for i in range(ticks):
+        ctx = use_mesh(mesh, rules) if mesh else contextlib.nullcontext()
+        with ctx:
+            (lg, caches), ms = _host_ms(lambda: decode_step(
+                cfg, params, nxt, caches, start + i, kernels=kernels))
+        nxt = lg[:, -1].argmax(-1)[:, None]
+        toks.append(nxt)
+        times.append(ms)
+    return torch.cat(toks, 1), times
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _decode_check(label, cfg, prompt_len, ticks, targets):
+    """f32: prefill, then ``ticks`` decode ticks under the (data=2,
+    model=4) mesh with ``decode_rules`` and without; every tick's logits
+    within MESH_DECODE_TOL, the greedy tokens equal, each mesh branch of
+    ``targets`` taken."""
+    import torch
+    from repro_torch.kernels import model_kernels
+    from repro_torch.launch.steps import decode_rules
+    from repro_torch.models import decode_step, init_cache, init_model, prefill
+    from repro_torch.parallel import use_mesh
+
+    mesh = _mesh(CP_MESH)
+    rules = decode_rules(cfg, mesh)
+    kernels = model_kernels(cfg)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    toks = _tokens(3, cfg.vocab, CP_BATCH, prompt_len)
+    caches = init_cache(cfg, CP_BATCH, CP_CHECK_SMAX, device="cuda")
+    lg, caches = prefill(cfg, params, toks, caches, kernels=kernels)
+    nxt = lg[:, -1].argmax(-1)[:, None]
+    plain = _clone(caches)
+    errs, same = [], True
+    with _CountCalls(*targets) as cc:
+        for i in range(ticks):
+            with use_mesh(mesh, rules):
+                got = decode_step(cfg, params, nxt, caches, prompt_len + i,
+                                  kernels=kernels)[0]
+            want = decode_step(cfg, params, nxt, plain, prompt_len + i,
+                               kernels=kernels)[0]
+            errs.append(float((got - want).abs().max()))
+            nxt_mesh = got[:, -1].argmax(-1)
+            nxt = want[:, -1].argmax(-1)
+            same = same and bool(torch.equal(nxt_mesh, nxt))
+            nxt = nxt[:, None]
+    log(f"{label} check: f32 {cfg.name} ({cfg.n_layers} layers), prefill "
+        f"{prompt_len} tokens then {ticks} ticks of {CP_BATCH} under mesh "
+        f"{mesh.shape} vs no mesh: logits max_abs_err {max(errs):.3e} "
+        f"(bound {MESH_DECODE_TOL}), greedy tokens equal {same}; mesh "
+        f"branch calls {cc.calls}")
+    require(max(errs) <= MESH_DECODE_TOL and same,
+            f"{label}: the mesh decode differs from the meshless one")
+    require(all(cc.calls.values()), f"{label}: a mesh branch was not taken")
+
+
+def phase_cp_decode():
+    """Context-parallel decode: qwen2-0.5b at full width and depth under
+    the (data=2, model=4) mesh with ``decode_rules``: its 2 KV heads do
+    not split 4 ways, so the cache is sequence-sharded.  Prefill 8 x 512
+    with the flash kernel (24 launches), then 32 greedy ticks with and
+    without the mesh; the f32 check at 2 layers.  Returns the flash
+    launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import model_kernels
+    from repro_torch.launch.steps import decode_rules
+    from repro_torch.models import attention, init_cache, init_model, prefill
+
+    mesh = _mesh(CP_MESH)
+    cfg = get_config("qwen2-0.5b")
+    rules = decode_rules(cfg, mesh)
+    require(rules.get("cache_seq") == ("model",), f"rules {rules}")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    kernels = model_kernels(cfg)
+    toks = _tokens(4, cfg.vocab, CP_BATCH, CP_PROMPT)
+    caches = init_cache(cfg, CP_BATCH, CP_SMAX, device="cuda")
+    reset_counts()
+    (lg, caches), pre_ms = _host_ms(lambda: prefill(cfg, params, toks, caches,
+                                                    kernels=kernels))
+    counts = read_counts()
+    want = expected_launches(cfg, 1)
+    require(counts == want, f"cp prefill launches {counts}, want {want}")
+    nxt = lg[:, -1].argmax(-1)[:, None]
+    plain = _clone(caches)
+    _decode_ticks(cfg, params, nxt, _clone(caches), CP_PROMPT, 2, kernels,
+                  mesh, rules)                      # warm-up
+    with _CountCalls((attention, "attn_decode_sharded")) as cc:
+        mt, m_ms = _decode_ticks(cfg, params, nxt, caches, CP_PROMPT,
+                                    CP_TICKS, kernels, mesh, rules)
+    calls = cc.calls["attn_decode_sharded"]
+    pt, p_ms = _decode_ticks(cfg, params, nxt, plain, CP_PROMPT, CP_TICKS,
+                                kernels, None, None)
+    agree = float((mt == pt).float().mean())
+    mean = lambda t: sum(t[1:]) / (len(t) - 1)
+    log(f"cp decode: {cfg.name} full width, {cfg.n_layers} layers, mesh "
+        f"{mesh.shape}, rules {rules}; prefill {CP_BATCH} x {CP_PROMPT} "
+        f"{pre_ms:.3f} ms with launches {counts}; {CP_TICKS} ticks of "
+        f"{CP_BATCH}: mean tick (after the first) {mean(m_ms):.3f} ms with "
+        f"the mesh, {mean(p_ms):.3f} ms without; attn_decode_sharded calls "
+        f"{calls} ({cfg.n_layers} a tick); greedy tokens equal to the "
+        f"meshless run's: {100 * agree:.1f}% (bf16); card {smi()}")
+    require(calls == cfg.n_layers * CP_TICKS, "cp decode: the mesh branch "
+            "was not taken on every layer and tick")
+    del params, caches, plain
+    release()
+    _decode_check("cp decode", dataclasses.replace(
+        cfg, n_layers=CP_CHECK_LAYERS, dtype=torch.float32,
+        param_dtype=torch.float32), CP_CHECK_PROMPT, CP_CHECK_TICKS,
+        [(attention, "attn_decode_sharded")])
+    return counts["flash_attention"]
+
+
+def phase_resident_decode(cfg, params):
+    """Resident-expert decode with the context-parallel MLA decode:
+    deepseek-v3-671b at full width cut to its 5 layers (2 MoE; ``cfg``
+    and ``params`` of the serve phase) under the (data=2, model=4) mesh
+    with ``decode_rules``: the experts resident on (model, data), 32 a
+    rank; the latent cache sequence-sharded.  8 sequences, 16 greedy
+    ticks with and without the mesh; the MoE layer against the meshless
+    decode at a batch where their capacities agree; the f32 check at the
+    smoke config.  Returns the grouped matmul's launches in the ticks."""
+    import torch
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.kernels import model_kernels
+    from repro_torch.launch.steps import decode_rules
+    from repro_torch.models import init_cache, mla, moe, prefill
+    from repro_torch.parallel import use_mesh
+
+    mesh = _mesh(CP_MESH)
+    full = get_config("deepseek-v3-671b")
+    rules = decode_rules(cfg, mesh)
+    axes, n_owner = moe.resident_axes(mesh, cfg.n_experts)
+    n_moe = sum(l.ffn == "moe" for l in cfg.layer_plan())
+    slab = (cfg.n_experts // n_owner) * 3 * cfg.d_model * cfg.moe_d_ff \
+        * torch.empty((), dtype=cfg.param_dtype).element_size() * n_moe
+    log(f"resident decode: {cfg.name} cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers ({n_moe} MoE), mesh {mesh.shape}: "
+        f"resident_plan {moe.resident_plan(cfg, mesh)}, "
+        f"{cfg.n_experts // n_owner} experts a rank of {n_owner}, slab "
+        f"{slab} bytes (budget {moe.RESIDENT_BUDGET_BYTES}); rules {rules}")
+    require(rules.get("experts") == axes == ("model", "data")
+            and rules.get("cache_seq") == ("model",)
+            and slab <= moe.RESIDENT_BUDGET_BYTES, "resident plan")
+    kernels = model_kernels(cfg)
+    toks = _tokens(5, cfg.vocab, RES_BATCH, RES_PROMPT)
+    caches = init_cache(cfg, RES_BATCH, SERVE_MAX_SEQ, device="cuda")
+    lg, caches = prefill(cfg, params, toks, caches, kernels=kernels)
+    nxt = lg[:, -1].argmax(-1)[:, None]
+    plain = _clone(caches)
+
+    # the MoE layer alone: at B = 8, capacity(cfg, B) (the mesh's
+    # resident decode) equals decode_capacity (the meshless decode), so
+    # the two branches give one result
+    p = params["stack"][0]["l0"]["ffn"]
+    x = torch.randn((RES_BATCH, 1, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8)
+                    ).to(cfg.dtype)
+    cap = moe.capacity(cfg, RES_BATCH)
+    require(cap == moe.decode_capacity(cfg, RES_BATCH),
+            f"capacity {cap} differs from the decode capacity")
+    with use_mesh(mesh, rules), _CountCalls(
+            (moe, "_moe_resident_decode")) as cc, torch.no_grad():
+        y = moe.moe_apply(cfg, p, x, kernel_fn=kernels["moe_gmm"],
+                          decode=True)[0]
+    with torch.no_grad():
+        ref = moe.moe_apply(cfg, p, x, kernel_fn=kernels["moe_gmm"],
+                            decode=True)[0]
+    require(cc.calls["_moe_resident_decode"] == 1 and torch.equal(y, ref),
+            "the resident decode differs from the meshless decode")
+    log(f"resident decode: one MoE layer at B = {RES_BATCH} (capacity "
+        f"{cap}) equals the meshless decode bit for bit")
+
+    _decode_ticks(cfg, params, nxt, _clone(caches), RES_PROMPT, 2, kernels,
+                  mesh, rules)                      # warm-up
+    reset_counts()
+    with _CountCalls((moe, "_moe_resident_decode"),
+                     (mla, "_mla_decode_sharded")) as cc:
+        mt, m_ms = _decode_ticks(cfg, params, nxt, caches, RES_PROMPT,
+                                    RES_TICKS, kernels, mesh, rules)
+    gmm = read_counts()["moe_gmm"]
+    pt, p_ms = _decode_ticks(cfg, params, nxt, plain, RES_PROMPT,
+                                RES_TICKS, kernels, None, None)
+    agree = float((mt == pt).float().mean())
+    mean = lambda t: sum(t[1:]) / (len(t) - 1)
+    log(f"resident decode: {RES_TICKS} ticks of {RES_BATCH} after a "
+        f"{RES_PROMPT}-token prefill: mean tick (after the first) "
+        f"{mean(m_ms):.3f} ms with the mesh, {mean(p_ms):.3f} ms without; "
+        f"gmm launches {gmm} ({3 * n_moe} a tick); mesh branch calls "
+        f"{cc.calls}; greedy tokens equal to the meshless run's: "
+        f"{100 * agree:.1f}% (bf16); card {smi()}")
+    require(gmm == 3 * n_moe * RES_TICKS
+            and cc.calls["_moe_resident_decode"] == n_moe * RES_TICKS
+            and cc.calls["_mla_decode_sharded"] == cfg.n_layers * RES_TICKS,
+            "resident decode: a mesh branch was not taken")
+    del caches, plain, p
+    release()
+    _decode_check("resident decode", dataclasses.replace(
+        get_smoke_config("deepseek-v3-671b"), moe_backend="lcx"),
+        CP_CHECK_PROMPT, CP_CHECK_TICKS,
+        [(moe, "_moe_resident_decode"), (mla, "_mla_decode_sharded")])
+    return gmm
+
+
+def phase_ep_mesh():
+    """Expert parallelism through ``moe_apply``: qwen3-moe-30b-a3b at full
+    width and depth, prefill of 8 x 512 under the (data=2, model=4) mesh:
+    each MoE layer's ``_moe_ep`` splits the batch over data and the
+    sequence over model, 512 tokens a rank (C = 40), the grouped matmul
+    over [128, 2 x 4 x 40, d] (3 launches a layer).  Prefill ms with and
+    without the mesh, tokens dropped (the gmm is timed at this shape with
+    the other kernel checks); the f32 check at the smoke config with
+    capacity factor 16.  Returns the flash and gmm launches and the MoE
+    layers."""
+    import torch
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.kernels import model_kernels
+    from repro_torch.models import (apply_model, init_cache, init_model, moe,
+                                    prefill)
+    from repro_torch.parallel import use_mesh
+
+    mesh = _mesh(CP_MESH)
+    cfg = get_config("qwen3-moe-30b-a3b")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    ep, dp = mesh.shape["model"], mesh.shape["data"]
+    t_loc = EP_MESH_BATCH // dp * (EP_MESH_SEQ // ep)
+    C = moe.capacity(cfg, t_loc)
+    kernels = model_kernels(cfg)
+    toks = _tokens(6, cfg.vocab, EP_MESH_BATCH, EP_MESH_SEQ)
+    caches = init_cache(cfg, EP_MESH_BATCH, EP_MESH_SEQ, device="cuda")
+    run = lambda: prefill(cfg, params, toks, caches, kernels=kernels)
+    with use_mesh(mesh):
+        run()                                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with use_mesh(mesh), _CountCalls((moe, "_moe_ep")) as cc, \
+            _RecordRoutes(t_loc) as routes:
+        (lg, _), ms = _host_ms(run)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_moe = sum(l.ffn == "moe" for l in cfg.layer_plan())
+    want = expected_launches(cfg, 1)
+    require(cc.calls["_moe_ep"] == n_moe and counts == want,
+            f"ep mesh: _moe_ep calls {cc.calls}, launches {counts}, want "
+            f"{want}")
+    dropped = sum(int((torch.bincount(i.reshape(-1), minlength=cfg.n_experts)
+                       - C).clamp_min(0).sum()) for i in routes.ids)
+    assigned = sum(i.numel() for i in routes.ids)
+    require(len(routes.ids) == n_moe * dp * ep, f"{len(routes.ids)} routes")
+    _, plain_ms = _host_ms(run)
+    log(f"ep mesh: {cfg.name} full width, {cfg.n_layers} layers, prefill "
+        f"{EP_MESH_BATCH} x {EP_MESH_SEQ} under mesh {mesh.shape}: "
+        f"{t_loc} tokens a rank, capacity {C}, the gmm on [{cfg.n_experts}, "
+        f"{dp * ep * C}, d] ({dp} data groups of [{cfg.n_experts}, "
+        f"{ep * C}, d]); prefill {ms:.3f} ms with the mesh, {plain_ms:.3f} "
+        f"ms without (the sort path over all {EP_MESH_BATCH * EP_MESH_SEQ} "
+        f"tokens); _moe_ep calls {cc.calls['_moe_ep']}; launches {counts}; "
+        f"tokens dropped {dropped} of {assigned} assignments; "
+        f"max_memory_allocated {peak} bytes; card {smi()}")
+    del params, caches, lg
+    release()
+
+    small = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
+                                moe_backend="lcx", capacity_factor=16.0)
+    sp = init_model(torch.Generator(device="cuda").manual_seed(0), small,
+                    device="cuda")
+    st = _tokens(7, small.vocab, EP_MESH_BATCH, 16)
+    sk = model_kernels(small)
+    with torch.no_grad():
+        with use_mesh(mesh), _CountCalls((moe, "_moe_ep")) as cc:
+            got = apply_model(small, sp, st, kernels=sk)[0]
+        want = apply_model(dataclasses.replace(small, moe_backend="sort"),
+                           sp, st, kernels=sk)[0]
+    err = float((got - want).abs().max())
+    log(f"ep mesh check: f32 {small.name} ({small.n_layers} layers, "
+        f"capacity factor 16), apply_model on {EP_MESH_BATCH} x 16 under the "
+        f"mesh vs the sort path: max_abs_err {err:.3e} (bound {EP_MESH_TOL});"
+        f" _moe_ep calls {cc.calls['_moe_ep']}")
+    require(err <= EP_MESH_TOL and cc.calls["_moe_ep"] == small.n_layers,
+            "the expert-parallel MoE differs from the sort path")
+    return counts["flash_attention"], counts["moe_gmm"], n_moe
+
+
+def phase_compressed_psum():
+    """``compressed_psum`` of qwen2-0.5b's full gradient (every parameter
+    tensor, random f32 gradients) over 4 stacked ranks: host ms, and each
+    element's mean within half the shared int8 step of the exact one."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import ranks
+    from repro_torch.models import abstract_init
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import compressed_psum
+
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = [t.shape for t in tree_leaves(abstract_init(cfg)[0])]
+    xs = [torch.randn((PSUM_RANKS,) + tuple(s), generator=gen,
+                      device="cuda") * 1e-3 for s in shapes]
+    n_params = sum(x[0].numel() for x in xs)
+    with ranks.bind_axis("dp", PSUM_RANKS):
+        compressed_psum(xs[0], "dp")                # warm-up
+        outs, ms = _host_ms(lambda: [compressed_psum(x, "dp")[0]
+                                     for x in xs])
+    worst = 0.0
+    for x, out in zip(xs, outs):
+        scale = float(x.abs().max()) / 127.0
+        exact = x.double().mean(0)
+        err = (out.double() - exact).abs().max(dim=-1).values
+        bound = scale / 2 + 2.0 ** -24 * float(x.abs().max())
+        require(bool((err <= bound).all()) and bool((out == out[:1]).all()),
+                "compressed_psum's mean is off by more than half a step")
+        worst = max(worst, float(err.max()) / scale)
+    log(f"compressed psum: {cfg.name}'s full gradient ({len(xs)} tensors, "
+        f"{n_params} f32 parameters) over {PSUM_RANKS} stacked ranks: host "
+        f"{ms:.3f} ms; largest error against the exact mean {worst:.4f} of "
+        f"the tensor's int8 step (bound 0.5); card {smi()}")
+    require(n_params == QWEN_PARAMS, f"{n_params} parameters")
+
+
+def phase_trainer_mesh():
+    """``Trainer(mesh=(data=4, model=2))``, qwen2-0.5b at full width and
+    depth: 2 steps, ``remesh`` to ``shrink_mesh_shape(..., lost=4)``, 2
+    more; the losses bitwise equal to an unmeshed run's."""
+    from repro_torch.runtime import Trainer, shrink_mesh_shape
+
+    mesh = _mesh(TRAIN_MESH)
+    cfg, tcfg = _train_cfg("qwen2-0.5b", 2 * TRAIN_MESH_STEPS)
+    tr = Trainer(cfg, tcfg, mesh=mesh, device="cuda")
+    try:
+        tr._run_until(TRAIN_MESH_STEPS)
+        shape = shrink_mesh_shape(dict(mesh.shape), lost=TRAIN_MESH_LOST)
+        _, remesh_ms = _host_ms(lambda: tr.remesh(
+            _mesh((tuple(shape.values()), tuple(shape)))))
+        tr._run_until(2 * TRAIN_MESH_STEPS)
+        specs = {k: tuple(v.spec) for k, v in tr.batch_sharding().items()}
+        meshed = [(m["loss"], m["dt"]) for m in tr.metrics_log]
+    finally:
+        tr.remesh(None)               # stops its loader, clears the mesh
+    del tr
+    release()
+    ref = Trainer(cfg, tcfg, device="cuda")
+    ref._run_until(2 * TRAIN_MESH_STEPS)
+    plain = [m["loss"] for m in ref.metrics_log]
+    log(f"trainer mesh: {cfg.name} on mesh {mesh.shape} for "
+        f"{TRAIN_MESH_STEPS} steps, remesh to {shape} ({remesh_ms:.3f} ms; "
+        f"batch specs {specs}), {TRAIN_MESH_STEPS} more: losses "
+        f"{[l for l, _ in meshed]}, step ms "
+        f"{[round(dt * 1e3, 3) for _, dt in meshed]}; unmeshed run "
+        f"{plain}")
+    require([l for l, _ in meshed] == plain,
+            "the meshed trainer's losses differ from the unmeshed run's")
+    del ref
+    release()
+    _trainer_mesh_moe(mesh)
+
+
+def _trainer_mesh_moe(mesh):
+    """A MoE model trains through ``_moe_ep`` under the mesh: autograd
+    through the LCX all-to-alls, and remat recomputing each period under
+    its forward's mesh.  f32 at qwen3-moe-30b-a3b's smoke config with
+    the ``lcx`` backend, capacity factor 16 (no token drops) and aux
+    coefficient 0, so that the meshed and the unmeshed run compute one
+    function: 2 steps of each, losses within 5e-5 and params within
+    2e-4 (the reference's tolerance for a sharded step)."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
+                              moe_backend="lcx", capacity_factor=16.0,
+                              aux_loss_coef=0.0)
+    tcfg = TrainConfig(lr=1e-3, warmup=0, total_steps=TRAIN_MESH_STEPS,
+                       seq_len=64, global_batch=8, log_every=1)
+    n_moe = sum(l.ffn == "moe" for l in cfg.layer_plan())
+    with _CountCalls((moe, "_moe_ep")) as cc:
+        tr = Trainer(cfg, tcfg, mesh=mesh, device="cuda")
+        try:
+            tr._run_until(TRAIN_MESH_STEPS)
+        finally:
+            tr.remesh(None)
+    ref = Trainer(cfg, tcfg, device="cuda")
+    ref._run_until(TRAIN_MESH_STEPS)
+    got = [m["loss"] for m in tr.metrics_log]
+    want = [m["loss"] for m in ref.metrics_log]
+    loss_err = max(abs(a - b) for a, b in zip(got, want))
+    with torch.no_grad():
+        param_err = max(float((a - b).abs().max()) for a, b in
+                        zip(tree_leaves(tr.params), tree_leaves(ref.params)))
+    # remat "full" runs each MoE layer again in the backward
+    calls = n_moe * TRAIN_MESH_STEPS * (2 if cfg.remat == "full" else 1)
+    log(f"trainer mesh moe: f32 {cfg.name} (lcx, capacity factor 16, aux "
+        f"coefficient 0) on mesh {mesh.shape}, {TRAIN_MESH_STEPS} steps: "
+        f"losses {got} vs unmeshed {want} (largest difference "
+        f"{loss_err:.3e}, bound {EP_MESH_TOL}); params after: max_abs_err "
+        f"{param_err:.3e} (bound {TRAIN_MESH_PARAM_TOL}); _moe_ep calls "
+        f"{cc.calls['_moe_ep']} (want {calls})")
+    require(cc.calls["_moe_ep"] == calls and len(got) == TRAIN_MESH_STEPS
+            and loss_err <= EP_MESH_TOL
+            and param_err <= TRAIN_MESH_PARAM_TOL,
+            "the meshed MoE trainer differs from the unmeshed run")
+
+
+def phase_mesh():
+    """Phase 16's paths on models of their own (the resident decode runs
+    on the DeepSeek-V3 serve phase's params).  pp's profile and the EP
+    prefill come last (see ``main``).  Returns the flash launches of the
+    context-parallel prefill, and the flash and grouped-matmul launches
+    in the EP prefill and the MoE layers there."""
+    flash = phase_cp_decode()
+    release()
+    phase_compressed_psum()
+    release()
+    phase_trainer_mesh()
+    release()
+    phase_gpipe_failover()
+    release()
+    phase_pp()
+    release()
+    ep_flash, ep_gmm, n_moe = phase_ep_mesh()
+    return flash, ep_flash, ep_gmm, n_moe
+
+
 def release() -> None:
     """Free the last phase's model before the next: an engine and its
     executor's task closures refer to each other, so only the garbage
@@ -2143,12 +2917,34 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
+def serve_only(archs) -> int:
+    """``--serve ARCH ...``: the device and build phases, then the serve
+    phase of each named architecture (with the full run's depth cuts),
+    one after another; no kernels line and no last line.  Copied into the
+    root of another checkout, it drives that checkout's package: an A/B
+    of the serving path runs it in alternating processes."""
+    from repro_torch.configs.base import get_config
+    if not archs:
+        print("usage: chip_smoke.py [--serve ARCH ...]", file=sys.stderr)
+        return 2
+    phase_device()
+    phase_build()
+    for arch in archs:
+        phase_serve(arch, _prompts(get_config(arch).vocab),
+                    **SERVE_CUTS.get(arch, {}))
+        release()
+    log(f"serve of {archs} passed")
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--serve"]:
+        return serve_only(sys.argv[2:])
     t0 = time.perf_counter()
     phase_device()
     phase_build()
@@ -2162,24 +2958,34 @@ def main() -> int:
     moe_cfg = get_config("qwen3-moe-30b-a3b")
     moe_prompts = _prompts(moe_cfg.vocab)
     moe_caps = [capacity(moe_cfg, len(p)) for p in moe_prompts]
+    # the rows an expert gets in the mesh's expert parallelism: ep ranks'
+    # capacity rows a data group, the groups' in one launch
+    dp, ep = CP_MESH[0]
+    ep_cap = capacity(moe_cfg, EP_MESH_BATCH // dp * EP_MESH_SEQ // ep)
+    ep_mesh_rows = [ep * ep_cap, dp * ep * ep_cap]
     ds_cfg = get_config("deepseek-v3-671b")
     ds_prompts = _prompts(ds_cfg.vocab)
-    flash = phase_kernel_check([len(p) for p in prompts],
-                               [len(p) for p in moe_prompts])
+    flash_err, flash_times = phase_kernel_check(
+        [len(p) for p in prompts], [len(p) for p in moe_prompts])
     ssd = phase_ssd_check([len(p) for p in m_prompts])
     ring = phase_ring_check()
-    gmm_times, gmm_err, _ = phase_gmm_check(
+    gmm_times, gmm_err, ds_times = phase_gmm_check(
         moe_caps, capacity(moe_cfg, EP_TOKENS),
-        [capacity(ds_cfg, len(p)) for p in ds_prompts])
+        [capacity(ds_cfg, len(p)) for p in ds_prompts]
+        + [capacity(ds_cfg, RES_BATCH)], ep_mesh_rows)
     mark("kernel checks")
-    counts, qwen_tokens, _ = phase_serve("qwen2-0.5b", prompts)
-    flash["launches"] = counts["flash_attention"]
+    counts, qwen_tokens, _, _ = phase_serve("qwen2-0.5b", prompts)
+    qwen_layers = get_config("qwen2-0.5b").n_layers
+    flash_entries = [(flash_times[len(p)], qwen_layers) for p in prompts]
+    flash_launches = counts["flash_attention"]
     release()
     ssd["launches"] = phase_serve("mamba2-130m", m_prompts)[0]["ssd_scan"]
     release()
-    counts, _, stats = phase_serve("qwen3-moe-30b-a3b", moe_prompts)
-    gmm = gmm_row(gmm_times, gmm_err, moe_caps, stats["ticks"],
-                  counts["moe_gmm"])
+    counts, _, stats, _ = phase_serve("qwen3-moe-30b-a3b", moe_prompts)
+    moe_layers = sum(l.ffn == "moe" for l in moe_cfg.layer_plan())
+    gmm_entries = [(gmm_times[c], moe_layers) for c in moe_caps]
+    gmm_entries.append((gmm_times[8], moe_layers * stats["ticks"]))
+    gmm_launches = counts["moe_gmm"]
     release()
     phase_greedy("qwen2-0.5b", prompts)
     release()
@@ -2207,20 +3013,15 @@ def main() -> int:
     release()
     mark("earlier slices' phases")
     # this slice: every other reference architecture, one at a time
-    phase_serve("deepseek-v3-671b", ds_prompts,
-                cut="its 3 dense prefix layers and 2 MoE layers, with the "
-                "MTP params; the whole model, ~1.3 TB in bf16, does not fit "
-                "one card", n_layers=DSV3_SERVE_LAYERS)
+    # and, on its params, the resident-expert decode (phase 16)
+    res_gmm = phase_serve("deepseek-v3-671b", ds_prompts,
+                          then=phase_resident_decode,
+                          **SERVE_CUTS["deepseek-v3-671b"])[3]
     release()
-    phase_serve("internlm2-20b", _prompts(get_config("internlm2-20b").vocab))
-    release()
-    phase_serve("starcoder2-7b", _prompts(get_config("starcoder2-7b").vocab))
-    release()
-    phase_serve("command-r-plus-104b",
-                _prompts(get_config("command-r-plus-104b").vocab),
-                cut="the whole model, ~208 GB in bf16, does not fit one card",
-                n_layers=CMDR_SERVE_LAYERS)
-    release()
+    for arch in ("internlm2-20b", "starcoder2-7b", "command-r-plus-104b"):
+        phase_serve(arch, _prompts(get_config(arch).vocab),
+                    **SERVE_CUTS.get(arch, {}))
+        release()
     mark("serve of the dense and MLA paths")
     for arch, cut in GREEDY_CUTS.items():
         c = get_config(arch)
@@ -2236,6 +3037,23 @@ def main() -> int:
     mark("frontends")
     phase_train()
     mark("training")
+    # this slice: the mesh paths, last: the EP prefill's ~10^5 launches in
+    # a second and the pp step's profile of ~8 x 10^4 kernels each leave
+    # torch.profiler recording no kernel in later windows (measured on
+    # this card)
+    cp_flash, ep_flash, ep_gmm, ep_layers = phase_mesh()
+    release()
+    flash_entries += [(flash_times["cp"], cp_flash),
+                      (flash_times["ep"], ep_flash)]
+    flash = flash_row(flash_entries, flash_err,
+                      flash_launches + cp_flash + ep_flash)
+    ds_moe = sum(l.ffn == "moe" for l in dataclasses.replace(
+        ds_cfg, n_layers=DSV3_SERVE_LAYERS).layer_plan())
+    res_times = ds_times[capacity(ds_cfg, RES_BATCH)]
+    gmm_entries += [(gmm_times[ep_mesh_rows[-1]], ep_layers),
+                    (res_times, ds_moe * RES_TICKS)]
+    gmm = gmm_row(gmm_entries, gmm_err, gmm_launches + ep_gmm + res_gmm)
+    mark("mesh paths")
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -48,6 +48,12 @@ def axis_size(name: str) -> int:
     raise NameError(f"unbound axis name: {name}")
 
 
+def bound_names() -> frozenset:
+    """Names of the axes bound on this thread (the reference's axis env
+    inside a ``shard_map`` / ``vmap`` region)."""
+    return frozenset(name for name, _ in _stack())
+
+
 def permute(value: torch.Tensor, pairs: Sequence[Tuple[int, int]]
             ) -> torch.Tensor:
     """``lax.ppermute`` on a rank-stacked tensor: rank ``dst`` receives

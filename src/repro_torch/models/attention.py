@@ -8,16 +8,22 @@ training passes none, as the reference's does); without one it runs
 online-softmax path.  Decode (:func:`attn_decode`) stays
 plain PyTorch, as the reference computes it outside any kernel, and
 takes one cache length per sequence so that slots at different fill
-levels share one batch.
+levels share one batch.  Under a mesh whose rules shard the cache's
+sequence dim over ``model`` (``launch.steps.decode_rules``) decode is
+context-parallel (:func:`attn_decode_sharded`): the cache is viewed as
+``[n_ranks, ...]`` shards of its sequence, each rank writes its own row
+and computes a partial softmax, and the partials are combined
+flash-decoding style.
 
 The chunked path keeps the reference's custom VJP as
 :class:`_Flash`, a ``torch.autograd.Function``: the forward saves only
 ``(q, k, v, out, lse)`` and the backward recomputes each block's scores,
 so training holds O(S) residuals per layer instead of every block's
 probabilities.  ``attention_full`` stays plain autograd, as in the
-reference.  The reference's sharding constraints are dropped (there is
-no mesh on one card), and so is the sequence-sharded decode (it comes
-with ``parallel/``).
+reference.  The reference's sharding constraints change layout, not
+values, so the port has none (``parallel/``); its chunked attention
+keeps whole ``q_block`` blocks under a mesh too, where the reference's
+take the size :func:`_pick_chunks` gives.
 
 Decode writes the new key/value row into the cache in place and returns
 the same cache: the cache is the engine's largest buffer, and the
@@ -30,6 +36,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..core import ranks
+from ..parallel.sharding import active_mesh, active_rules
 from .common import (PyTree, apply_rope, dense, dense_init, norm, norm_init,
                      rope_cos_sin)
 
@@ -249,6 +257,38 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :s]
 
 
+def _tp_size() -> int:
+    mesh = active_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return int(mesh.shape["model"])
+
+
+def _pick_chunks(s: int, block: int, tp: int) -> Tuple[int, int]:
+    """The reference's block choice under a mesh: (n_chunks, block) such
+    that n_chunks divides s, is a multiple of tp (so the chunk stack
+    shards over ``model``), and the block is closest to the requested
+    one; gcd blocking when no tp-aligned divisor exists.  The port's
+    chunked attention keeps its padded ``q_block`` blocks instead (the
+    same function, summed over other blocks)."""
+    best = None
+    d = 1
+    while d * d <= s:
+        if s % d == 0:
+            for nq in (d, s // d):
+                if nq % tp == 0 and s // nq >= 1:
+                    # log-distance: 4 and 16384 are both "far" from 256
+                    score = abs(math.log2(s / nq) - math.log2(block))
+                    if best is None or score < best[0]:
+                        best = (score, nq)
+        d += 1
+    if best is not None:
+        nq = best[1]
+        return nq, s // nq
+    bq = max(1, math.gcd(s, block))
+    return s // bq, bq
+
+
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
@@ -304,6 +344,115 @@ def attn_cache_init(cfg: Any, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def attn_cache_dims() -> PyTree:
+    return {"k": ("cache_batch", "cache_seq", "kv_heads", "head"),
+            "v": ("cache_batch", "cache_seq", "kv_heads", "head")}
+
+
+def seq_sharded_decode(smax: int) -> bool:
+    """True when decode runs with the cache sharded along its sequence dim
+    over ``model`` (context-parallel decode: set by
+    ``launch.steps.decode_rules`` for configs whose KV-head count cannot
+    shard the model axis, and always for MLA's head-less latent cache)."""
+    mesh = active_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    if mesh.shape["model"] <= 1 or smax % mesh.shape["model"]:
+        return False
+    return "model" in active_rules().get("cache_seq", ())
+
+
+def _dp_prefix(mesh: Any, b: int) -> Optional[Tuple[str, ...]]:
+    """The data axes that split a batch of ``b``: the longest prefix of
+    (pod, data) whose product divides it."""
+    axes = []
+    prod = 1
+    for a in ("pod", "data"):
+        if a in mesh.shape and b % (prod * mesh.shape[a]) == 0:
+            axes.append(a)
+            prod *= mesh.shape[a]
+        else:
+            break
+    return tuple(axes) if axes else None
+
+
+def _seq_shards(buf: torch.Tensor, n: int) -> torch.Tensor:
+    """``[B, Smax, ...]`` -> the view ``[n, B, Smax / n, ...]``: rank r's
+    shard of every sequence (no copy)."""
+    b, smax = buf.shape[:2]
+    return buf.view((b, n, smax // n) + tuple(buf.shape[2:])).transpose(0, 1)
+
+
+def _local_row_update(buf: torch.Tensor, row: torch.Tensor,
+                      off: torch.Tensor, in_range: torch.Tensor) -> None:
+    """Write sequence i's ``row[i]`` at local offset ``off[r, i]`` of rank
+    r's shard iff ``in_range[r, i]``, in place: one row per rank and
+    sequence (a full-buffer select would rewrite the cache every token).
+    buf ``[n, B, S_loc, ...]`` (a view of the cache), row ``[B, ...]``,
+    off / in_range ``[n, B]``."""
+    n, b, s_loc = buf.shape[:3]
+    r_idx = torch.arange(n, device=buf.device)[:, None].expand(n, b)
+    b_idx = torch.arange(b, device=buf.device)[None, :].expand(n, b)
+    at = off.clamp(0, s_loc - 1)
+    cur = buf[r_idx, b_idx, at]                              # [n, B, ...]
+    keep = in_range.reshape((n, b) + (1,) * (cur.dim() - 2))
+    buf[r_idx, b_idx, at] = torch.where(keep, row.to(buf.dtype)[None], cur)
+
+
+def _shard_offsets(lengths: torch.Tensor, n: int, s_loc: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the global positions of each rank's rows [n, S_loc], each
+    sequence's new row's offset in each rank's shard [n, B], whether it
+    falls in that shard [n, B])."""
+    start = torch.arange(n, device=lengths.device)[:, None] * s_loc
+    off = lengths.long()[None, :] - start
+    pos = start + torch.arange(s_loc, device=lengths.device)[None, :]
+    return pos, off, (off >= 0) & (off < s_loc)
+
+
+def _flash_decode_combine(acc: torch.Tensor, m: torch.Tensor,
+                          l: torch.Tensor) -> torch.Tensor:
+    """Flash-decoding softmax combine across the sequence shards: the
+    rank-stacked partials acc ``[n, ..., dv]``, m / l ``[n, ...]`` (the
+    reference's pmax / psum over the bound axis)."""
+    m_g = m.amax(0)
+    corr = torch.exp(m - m_g)
+    l_g = (l * corr).sum(0)
+    acc_g = (acc * corr[..., None]).sum(0)
+    return acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def attn_decode_sharded(cfg: Any, q: torch.Tensor, k_new: torch.Tensor,
+                        v_new: torch.Tensor, cache: PyTree,
+                        lengths: torch.Tensor) -> Tuple[torch.Tensor, PyTree]:
+    """Context-parallel decode: the cache stays sharded along its
+    sequence over ``model``.  Each rank writes the rows that fall in its
+    shard and computes a partial softmax over it; the partials are
+    combined flash-decoding style.  q [B,1,Hq,hd], k_new / v_new
+    [B,1,Hkv,hd], lengths [B] -> (out [B,1,Hq,hd], the cache written in
+    place).  As in the reference's sharded decode, no window applies."""
+    n = active_mesh().shape["model"]
+    b, _, hq, hd = q.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    with ranks.bind_axis("model", n):
+        ck, cv = _seq_shards(cache["k"], n), _seq_shards(cache["v"], n)
+        hkv = ck.shape[3]
+        pos, off, in_range = _shard_offsets(lengths, n, ck.shape[2])
+        _local_row_update(ck, k_new[:, 0], off, in_range)
+        _local_row_update(cv, v_new[:, 0], off, in_range)
+        qg = q.reshape(b, 1, hkv, hq // hkv, hd).float()
+        s = torch.einsum("bqhgd,nbkhd->nbhgqk", qg, ck.float()) * scale
+        valid = pos[:, None, :] <= lengths[None, :, None]    # [n, B, S_loc]
+        s = s.masked_fill(~valid[:, :, None, None, None, :], NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        acc = torch.einsum("nbhgqk,nbkhd->nbhgqd",
+                           p.to(cv.dtype).float(), cv.float())
+        out = _flash_decode_combine(acc, m, p.sum(-1))       # [B,Hkv,G,1,dv]
+    y = out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, out.shape[-1])
+    return y.to(q.dtype), cache
+
+
 def attn_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
                 lengths: torch.Tensor) -> Tuple[torch.Tensor, PyTree]:
     """One decode step.  x [B,1,D]; cache k/v [B,Smax,Hkv,hd]; lengths
@@ -312,6 +461,11 @@ def attn_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
     b = x.shape[0]
     positions = lengths.to(torch.int32)[:, None]            # [B, 1]
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    if seq_sharded_decode(cache["k"].shape[1]):
+        out, cache = attn_decode_sharded(cfg, q, k_new, v_new, cache,
+                                         lengths)
+        y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        return y, cache
     k, v = cache["k"], cache["v"]
     smax = k.shape[1]
     rows = torch.arange(b, device=x.device)

@@ -19,9 +19,12 @@ token for V3 instead of 32768).  The two compute the same function and
 sum in different orders.
 
 As in :mod:`.attention`, decode takes one cache length per sequence and
-writes the new latent row into the cache in place.  The reference's
-tensor-parallel constraints and its sequence-sharded decode
-(``_mla_decode_sharded``) come with ``parallel/`` (ROADMAP.md).
+writes the new latent row into the cache in place.  Under a mesh whose
+rules shard the cache's sequence over ``model`` the absorbed decode is
+context-parallel (:func:`_mla_decode_sharded`, as
+:func:`.attention.attn_decode_sharded`).  The reference's
+tensor-parallel constraints change layout, not values, and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -30,7 +33,11 @@ from typing import Any, Tuple
 
 import torch
 
-from .attention import NEG_INF, attention_chunked, attention_full
+from ..core import ranks
+from ..parallel.sharding import active_mesh
+from .attention import (NEG_INF, _flash_decode_combine, _local_row_update,
+                        _seq_shards, _shard_offsets, attention_chunked,
+                        attention_full, seq_sharded_decode)
 from .common import PyTree, dense, dense_init, norm, norm_init, rope_cos_sin
 
 
@@ -133,6 +140,11 @@ def mla_cache_init(cfg: Any, batch: int, max_seq: int,
                                  dtype=dtype, device=device)}
 
 
+def mla_cache_dims() -> PyTree:
+    return {"ckv": ("cache_batch", "cache_seq", "kv_lora"),
+            "krope": ("cache_batch", "cache_seq", "head")}
+
+
 def mla_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
                lengths: torch.Tensor) -> Tuple[torch.Tensor, PyTree]:
     """One decode step with the absorbed formulation.  x [B,1,D]; lengths
@@ -147,6 +159,9 @@ def mla_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
     positions = lengths.to(torch.int32)[:, None]            # [B, 1]
     q_nope, q_rope = _queries(cfg, p, x, positions)          # [B,1,H,*]
     c_new, kr_new = _latents(cfg, p, x, positions)           # [B,1,*]
+    if seq_sharded_decode(cache["ckv"].shape[1]):
+        return _mla_decode_sharded(cfg, p, x, q_nope, q_rope, c_new, kr_new,
+                                   cache, lengths)
     ckv, krope = cache["ckv"], cache["krope"]
     smax = ckv.shape[1]
     rows = torch.arange(b, device=x.device)
@@ -168,6 +183,46 @@ def mla_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
     pattn = torch.softmax(s, dim=-1).to(x.dtype)
     o_lat = torch.einsum("bhqk,bkl->bqhl", pattn.float(),
                          ckv.float()).to(x.dtype)
+    wuv = p["w_uv"]["w"].reshape(cfg.kv_lora_rank, H, cfg.v_head_dim)
+    out = torch.einsum("bqhl,lhd->bqhd", o_lat, wuv.to(x.dtype))
+    y = dense(p["wo"], out.reshape(b, 1, H * cfg.v_head_dim))
+    return y, cache
+
+
+def _mla_decode_sharded(cfg: Any, p: PyTree, x: torch.Tensor,
+                        q_nope: torch.Tensor, q_rope: torch.Tensor,
+                        c_new: torch.Tensor, kr_new: torch.Tensor,
+                        cache: PyTree, lengths: torch.Tensor
+                        ) -> Tuple[torch.Tensor, PyTree]:
+    """Context-parallel absorbed decode: the latent cache stays sharded
+    along its sequence over ``model``; each rank writes the rows in its
+    shard and computes a partial softmax, combined flash-decoding style
+    (see :func:`.attention.attn_decode_sharded`).  Returns (y [B,1,D],
+    the cache written in place)."""
+    n = active_mesh().shape["model"]
+    b = x.shape[0]
+    H = cfg.n_heads
+    wuk = p["w_uk"]["w"].reshape(cfg.kv_lora_rank, H, cfg.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, wuk.to(x.dtype))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    with ranks.bind_axis("model", n):
+        ckv = _seq_shards(cache["ckv"], n)                   # [n,B,Sl,L]
+        krope = _seq_shards(cache["krope"], n)
+        pos, off, in_range = _shard_offsets(lengths, n, ckv.shape[2])
+        _local_row_update(ckv, c_new[:, 0], off, in_range)
+        _local_row_update(krope, kr_new[:, 0], off, in_range)
+        s_nope = torch.einsum("bqhl,nbkl->nbhqk", q_lat.float(), ckv.float())
+        s_rope = torch.einsum("bqhd,nbkd->nbhqk", q_rope.float(),
+                              krope.float())
+        s = (s_nope + s_rope) * scale                        # [n,B,H,1,Sl]
+        valid = pos[:, None, :] <= lengths[None, :, None]    # [n, B, Sl]
+        s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
+        m = s.amax(-1)
+        pr = torch.exp(s - m[..., None])
+        acc = torch.einsum("nbhqk,nbkl->nbhql", pr.to(ckv.dtype).float(),
+                           ckv.float())
+        o_lat = _flash_decode_combine(acc, m, pr.sum(-1))    # [B,H,1,L]
+    o_lat = o_lat.transpose(1, 2).to(x.dtype)                # [B,1,H,L]
     wuv = p["w_uv"]["w"].reshape(cfg.kv_lora_rank, H, cfg.v_head_dim)
     out = torch.einsum("bqhl,lhd->bqhd", o_lat, wuv.to(x.dtype))
     y = dense(p["wo"], out.reshape(b, 1, H * cfg.v_head_dim))

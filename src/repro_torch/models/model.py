@@ -43,6 +43,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..configs.base import LayerSpec
 from ..device import DeviceLike, resolve_device
+from ..parallel.sharding import active_mesh, active_rules, use_mesh
 from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
 from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
                      norm, norm_init, softmax_xent, swiglu, tree_map)
@@ -257,6 +258,14 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
     policy = {} if cfg.remat != "dots" else {
         "context_fn": functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+    # the backward recomputes a period under the mesh and rules of its
+    # forward, whatever is active when the gradient is taken
+    mesh, rules = active_mesh(), active_rules()
+
+    def remat_body(*a):
+        with use_mesh(mesh, rules):
+            return period_body(*a)
+
     for n, p_period in enumerate(params["stack"]):
         c_period = None
         if caches is not None:
@@ -264,7 +273,7 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
                                   caches["stack"][f"l{j}"].items()}
                         for j in range(len(period))}
         if remat:
-            x, aux_total = ckpt.checkpoint(period_body, p_period, c_period,
+            x, aux_total = ckpt.checkpoint(remat_body, p_period, c_period,
                                            x, aux_total, use_reentrant=False,
                                            **policy)
         else:

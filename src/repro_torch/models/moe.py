@@ -7,12 +7,18 @@ The port of ``repro/models/moe.py``.  Backends (``cfg.moe_backend``):
 - ``sort``: sort-based capacity dispatch on one device (stable sort by
   expert id, position within the expert from the group starts, capacity
   drop), the local building block of the expert-parallel path;
-- ``lcx``: expert parallelism over a mesh in the reference.  The port has
-  no mesh yet, and the reference with no active mesh takes the sort path,
-  so ``lcx`` does too here.  :func:`_moe_ep_shard`, the per-rank body of
-  the reference's expert-parallel path, runs on rank-stacked tokens and
-  dispatches them with LCX's ``all_to_all_x``; the mesh wrapper
-  (``_moe_ep``) and the resident-expert decode wait for ``parallel/``.
+- ``lcx``: expert parallelism over the active mesh
+  (``parallel.sharding``); with no mesh it takes the sort path, as the
+  reference does.  Under a mesh, :func:`moe_apply` takes the reference's
+  branches: a prefill splits its tokens over (data..., model) ranks and
+  runs :func:`_moe_ep` (sequence-sharded when ``S % ep == 0``,
+  token-sliced and padded otherwise), whose per-rank body
+  :func:`_moe_ep_shard` dispatches rank-stacked tokens with LCX's
+  ``all_to_all_x``; a decode step runs :func:`_moe_resident_decode` when
+  the experts are resident on the joint (model, data...) ranks
+  (:func:`resident_plan`), else the sort path over streamed chunks of
+  experts.  Both decode branches route all B tokens together with
+  ``capacity(cfg, B)``, as the reference's mesh paths do.
 
 Routers: ``softmax`` (standard top-k) and ``sigmoid`` (DeepSeek-V3 style
 with top-k normalisation).  The aux loss is the Switch load-balancing
@@ -35,6 +41,8 @@ import torch
 
 from .. import core as lcx
 from ..core import ranks
+from ..parallel.sharding import (active_mesh, active_rules, dp_axes,
+                                 ep_axis_name)
 from .common import PyTree, _normal, dense, dense_init, swiglu
 
 KernelFn = Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
@@ -75,7 +83,12 @@ def route(cfg: Any, router_p: PyTree, x: torch.Tensor
         scores = torch.sigmoid(logits)
     else:
         scores = torch.softmax(logits, dim=-1)
-    w, ids = torch.topk(scores, cfg.n_experts_per_tok, dim=-1)
+    # top k with ties to the lower expert id, as lax.top_k breaks them
+    # (torch.topk does not: tied scores, such as a zero padding row's,
+    # would choose other experts)
+    w, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+    k = cfg.n_experts_per_tok
+    w, ids = w[..., :k], ids[..., :k]
     if cfg.router_norm_topk:
         w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch load-balance aux: E * sum_e f_e * P_e
@@ -217,55 +230,153 @@ def _moe_ep_shard(cfg: Any, p: PyTree, x: torch.Tensor, ep_axis: str,
     ranks, ``[ep, E_loc, ep*C, d]``, is one product over ``[E, ep*C, d]``
     (one kernel launch per projection); a second all-to-all brings the
     rows back and each rank combines its own."""
+    y, aux = _moe_ep_groups(cfg, p, x[None], ep_axis, a2a_backend,
+                            kernel_fn)
+    return y[0], aux[0]
+
+
+def _moe_ep_groups(cfg: Any, p: PyTree, x: torch.Tensor, ep_axis: str,
+                   a2a_backend: str, kernel_fn: KernelFn = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_moe_ep_shard` for ``G`` independent groups of ranks at once:
+    ``x [G, ep, T_loc, d]`` (the data-parallel groups of a mesh, each an
+    expert-parallel ring of ``ep`` ranks) -> (y [G, ep, T_loc, d], aux
+    [G, ep]).  Each group's all-to-alls stay within it; the expert FFN of
+    every group and rank is one product over ``[E, G*ep*C, d]``."""
     ep = ranks.axis_size(ep_axis)
-    if x.dim() != 3 or x.shape[0] != ep:
+    if x.dim() != 4 or x.shape[1] != ep:
         raise ValueError(f"rank-stacked x has shape {tuple(x.shape)}, axis "
                          f"{ep_axis!r} has {ep} ranks")
     E = cfg.n_experts
     if E % ep:
         raise ValueError(f"{E} experts do not split over {ep} ranks")
-    E_loc = E // ep
-    d = x.shape[-1]
-    C = capacity(cfg, x.shape[1])
-    bufs, infos, auxes = [], [], []
-    for r in range(ep):
-        ids, w, aux = route(cfg, p["router"], x[r])
-        buf, info = dispatch(x[r], ids, w, E, C)          # [E, C, d]
-        bufs.append(buf.reshape(E * C, d))
-        infos.append(info)
-        auxes.append(aux)
-
+    G, E_loc, d = x.shape[0], E // ep, x.shape[-1]
+    C = capacity(cfg, x.shape[2])
+    infos, auxes, sent = [], [], []
     # Private runtime + isolated device per a2a region: the MoE layer's
     # traffic never touches (or requires) the global default runtime.
     rt = lcx.Runtime(name="moe-ep")
     dev = rt.device(axis=ep_axis)
-    a2a = lcx.all_to_all_x(torch.stack(bufs)).device(dev) \
-        .backend(a2a_backend)()
-    # rank r's rows grouped by source rank: [ep, ep, E_loc, C, d] ->
-    # [ep, E_loc, ep*C, d], i.e. [E, ep*C, d] in global expert order
-    xb = a2a.reshape(ep, ep, E_loc, C, d).transpose(1, 2) \
-        .reshape(E, ep * C, d)
+    for g in range(G):
+        bufs = []
+        for r in range(ep):
+            ids, w, aux = route(cfg, p["router"], x[g, r])
+            buf, info = dispatch(x[g, r], ids, w, E, C)   # [E, C, d]
+            bufs.append(buf.reshape(E * C, d))
+            infos.append(info)
+            auxes.append(aux)
+        sent.append(lcx.all_to_all_x(torch.stack(bufs)).device(dev)
+                    .backend(a2a_backend)())
+    # rank r's rows grouped by source rank: [G, ep, ep, E_loc, C, d] ->
+    # [ep, E_loc, G, ep*C, d], i.e. [E, G*ep*C, d] in global expert order
+    xb = torch.stack(sent).reshape(G, ep, ep, E_loc, C, d) \
+        .permute(1, 3, 0, 2, 4, 5).reshape(E, G * ep * C, d)
     yb = _expert_ffn(p, xb, 0, E, kernel_fn)
-    back = yb.reshape(ep, E_loc, ep, C, d).transpose(1, 2) \
-        .reshape(ep, E * C, d)
-    y_all = lcx.all_to_all_x(back).device(dev).backend(a2a_backend)()
-    y = torch.stack([combine(y_all[r].reshape(E, C, d), infos[r], d)
-                     for r in range(ep)])
-    return y, torch.stack(auxes)
+    back = yb.reshape(ep, E_loc, G, ep, C, d).permute(2, 0, 3, 1, 4, 5) \
+        .reshape(G, ep, E * C, d)
+    ys = []
+    for g in range(G):
+        y_all = lcx.all_to_all_x(back[g]).device(dev) \
+            .backend(a2a_backend)()
+        ys.append(torch.stack([
+            combine(y_all[r].reshape(E, C, d), infos[g * ep + r], d)
+            for r in range(ep)]))
+    return torch.stack(ys), torch.stack(auxes).reshape(G, ep)
+
+
+def _moe_ep(cfg: Any, p: PyTree, x: torch.Tensor, mesh: Any,
+            kernel_fn: KernelFn = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over the mesh: x [B, S, d] -> (y [B*S, d], aux).
+
+    The batch splits over the longest prefix of the data axes that
+    divides it, one group of ``ep`` expert-parallel ranks for each data
+    rank, and the split changes values: each rank's capacity counts its
+    own tokens.  Tokens are sequence-sharded over the ``model`` axis when
+    S divides, else each group's tokens are padded to a multiple of
+    ``ep`` and sliced, and the slices joined back (the reference's psum
+    of disjoint slices).  The aux loss is the mean over the first
+    group's ranks, with the gradient of the mean over every rank: the
+    reference's region returns it as replicated, which reads data rank
+    0's value, and its transpose hands every rank the cotangent."""
+    ep_ax = ep_axis_name()
+    ep = mesh.shape[ep_ax]
+    b, s, d = x.shape
+    dp = 1
+    for a in dp_axes(mesh):
+        if b % (dp * mesh.shape[a]):
+            break
+        dp *= mesh.shape[a]
+    bl = b // dp
+    backend = cfg_a2a_backend(cfg)
+    with ranks.bind_axis(ep_ax, ep):
+        if s % ep == 0:
+            xs = x.reshape(dp, bl, ep, s // ep, d).transpose(1, 2) \
+                .reshape(dp, ep, bl * (s // ep), d)
+            y, aux = _moe_ep_groups(cfg, p, xs, ep_ax, backend, kernel_fn)
+            y = y.reshape(dp, ep, bl, s // ep, d).transpose(1, 2)
+            return y.reshape(b * s, d), _replicated_aux(aux)
+        T = bl * s
+        Tp = -(-T // ep) * ep
+        xp = torch.nn.functional.pad(x.reshape(dp, T, d),
+                                     (0, 0, 0, Tp - T))
+        y, aux = _moe_ep_groups(cfg, p, xp.reshape(dp, ep, Tp // ep, d),
+                                ep_ax, backend, kernel_fn)
+        return (y.reshape(dp, Tp, d)[:, :T].reshape(b * s, d),
+                _replicated_aux(aux))
+
+
+def _replicated_aux(aux: torch.Tensor) -> torch.Tensor:
+    """aux [G, ep] -> the first group's mean, differentiated as the mean
+    of all G * ep ranks' (the value plus an exact zero that carries the
+    gradient)."""
+    every = aux.mean()
+    return aux[0].mean().detach() + (every - every.detach())
+
+
+def _resident_ok(cfg: Any, mesh: Any) -> bool:
+    """Resident-expert decode needs (i) the experts rule to shard over
+    the joint axes (set by ``launch.steps.decode_rules``), (ii) the
+    resident slab to fit the budget."""
+    axes = resident_plan(cfg, mesh)
+    return axes is not None \
+        and tuple(active_rules().get("experts", ())) == axes
 
 
 def moe_apply(cfg: Any, p: PyTree, x: torch.Tensor,
               kernel_fn: KernelFn = None, decode: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, d] -> (y [B, S, d], aux loss scalar).  With no mesh, as
-    the reference without an active one: ``dense`` stays dense (the
-    oracle, which runs no kernel), every other backend (``lcx`` included)
-    takes the sort path.  ``decode`` (x [B, 1, d], one token for each of
-    B sequences): the sort path routes each token as the reference's
-    per-slot decode does, with :func:`decode_capacity`."""
+    """x [B, S, d] -> (y [B, S, d], aux loss scalar).
+
+    ``lcx`` under an active mesh takes the reference's mesh branches: at
+    S = 1 the resident-expert decode (:func:`_resident_ok`) or the sort
+    path over ``min(16, E)`` streamed chunks of experts, both at
+    ``capacity(cfg, B)``; otherwise :func:`_moe_ep` when the ``model``
+    axis has more than one rank and splits the experts.  Else, as the
+    reference with no mesh: ``dense`` stays dense (the oracle, which runs
+    no kernel), every other backend takes the sort path.  ``decode`` (x
+    [B, 1, d], one token for each of B sequences): the sort path with no
+    mesh routes each token as the reference's per-slot decode does, with
+    :func:`decode_capacity`."""
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
-    if cfg.moe_backend == "dense":
+    mesh = active_mesh()
+    ep_ax = ep_axis_name()
+    lcx_mesh = cfg.moe_backend == "lcx" and mesh is not None
+    if lcx_mesh and s == 1 and _resident_ok(cfg, mesh):
+        # decode with the experts resident on the joint ranks: no weight
+        # streaming at all
+        y, aux = _moe_resident_decode(cfg, p, x_flat, mesh, kernel_fn)
+    elif lcx_mesh and s == 1:
+        # decode fallback: the expert FFN over streamed chunks of experts
+        y, aux = _moe_sort_local(cfg, p, x_flat,
+                                 stream_chunks=min(16, cfg.n_experts),
+                                 kernel_fn=kernel_fn)
+    elif lcx_mesh and ep_ax in mesh.axis_names \
+            and mesh.shape[ep_ax] > 1 \
+            and cfg.n_experts % mesh.shape[ep_ax] == 0:
+        y, aux = _moe_ep(cfg, p, x, mesh, kernel_fn)
+    elif cfg.moe_backend == "dense":
         y, aux = _moe_dense(cfg, p, x_flat)
     else:
         y, aux = _moe_sort_local(cfg, p, x_flat, kernel_fn=kernel_fn,
@@ -283,3 +394,60 @@ def cfg_a2a_backend(cfg: Any) -> str:
     'pairwise' (n - 1 LCX puts).  Tunable per config."""
     return getattr(cfg, "moe_a2a", "native")
 
+
+# ---------------------------------------------------------------------------
+# resident-expert decode
+# ---------------------------------------------------------------------------
+RESIDENT_BUDGET_BYTES = 6 * 1024 ** 3     # device share for resident experts
+
+
+def resident_axes(mesh: Any, E: int) -> Tuple[Tuple[str, ...], int]:
+    """Longest (model, data..., pod) prefix whose product divides E: the
+    joint axes the expert weights shard over so that they stay resident
+    for decode (no FSDP weight streaming).  DeepSeek-V3's 256 experts
+    over 256 ranks: one resident expert a rank."""
+    axes = []
+    prod = 1
+    # model first, then data, then pod: on the multi-pod mesh 256 experts
+    # land on (model, data) and stay replicated across pods
+    for a in ("model", *reversed(dp_axes(mesh))):
+        if a in mesh.shape and E % (prod * mesh.shape[a]) == 0:
+            axes.append(a)
+            prod *= mesh.shape[a]
+        else:
+            break
+    return tuple(axes), prod
+
+
+def resident_plan(cfg: Any, mesh: Any) -> Optional[Tuple[str, ...]]:
+    """Axes for the resident-expert decode, or None when a rank's
+    resident slab would not fit the budget (Jamba's 16 fat experts over
+    256 ranks, 1.2 GiB x 36 layers: stream instead)."""
+    if not cfg.n_experts:
+        return None
+    axes, n = resident_axes(mesh, cfg.n_experts)
+    if n <= 1:
+        return None
+    n_moe_layers = sum(1 for spec in cfg.layer_plan() if spec.ffn == "moe")
+    itemsize = torch.empty((), dtype=cfg.param_dtype).element_size()
+    per_dev = (cfg.n_experts // n) * 3 * cfg.d_model * cfg.moe_d_ff \
+        * itemsize * n_moe_layers
+    if per_dev > RESIDENT_BUDGET_BYTES:
+        return None
+    return axes
+
+
+def _moe_resident_decode(cfg: Any, p: PyTree, x_flat: torch.Tensor,
+                         mesh: Any, kernel_fn: KernelFn = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode MoE with resident experts: the tokens are replicated (tiny
+    at decode), so every rank routes all T of them alike with
+    ``capacity(cfg, T)``; rank r (numbered row-major over
+    :func:`resident_axes`) runs the FFN on the capacity rows of its
+    ``E_loc`` experts with its resident weights, and the rows come back
+    by the reference's psum of disjoint slices.  With every rank on one
+    card the owner ranks' slices ``[E_loc, C, d]`` tile the capacity
+    buffer ``[E, C, d]`` in expert order, so the region is the sort path
+    at ``capacity(cfg, T)``: every rank's FFN in one product (one kernel
+    launch per projection)."""
+    return _moe_sort_local(cfg, p, x_flat, kernel_fn=kernel_fn)

@@ -164,6 +164,11 @@ def ssm_cache_init(cfg: Any, batch: int, *, device: torch.device
     }
 
 
+def ssm_cache_dims() -> PyTree:
+    return {"conv": ("cache_batch", "conv_k", "ssm_conv_ch"),
+            "h": ("cache_batch", "ssm_heads", "state", "head")}
+
+
 def ssm_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree
                ) -> Tuple[torch.Tensor, PyTree]:
     """One token.  x [B,1,D] -> (y [B,1,D], cache), the cache's ``conv``

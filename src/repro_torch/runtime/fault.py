@@ -14,10 +14,11 @@ flow is driven by injectable signals so every policy is testable on CPU:
   driven, same EMA idiom) and declares silently dead devices, triggering
   live endpoint failover (``runtime.failover``), a fatal drain, or a
   raised ``NodeFailure`` per its ``on_dead`` policy.
-- :func:`elastic_reshard` moves live state onto new devices.
+- :func:`elastic_reshard` moves live state onto new shardings or devices.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -221,19 +222,33 @@ class HeartbeatMonitor:
                 f"heartbeat lost on {dev!r} at tick {runtime.tick}", 1)
 
 
-def elastic_reshard(tree: PyTree, devices: PyTree) -> PyTree:
-    """Move live state onto new devices: each tensor leaf of ``tree``
-    goes to the ``torch.device`` (or device string; ``None`` is the card)
-    in the matching leaf of ``devices`` — the rank-stacked counterpart of
-    moving onto new shardings.  Works for both shrink (node loss) and grow (node
-    recovery); shapes are unchanged."""
+def elastic_reshard(tree: PyTree, shardings: PyTree) -> PyTree:
+    """Move live state onto new shardings (a new mesh) or devices: each
+    tensor leaf of ``tree`` takes the matching leaf of ``shardings``.  A
+    :class:`~repro_torch.parallel.NamedSharding` is a layout over ranks
+    that all live on the tensor's card, so the tensor stays as it is; a
+    ``torch.device`` or device string (``None``: the card) moves it.
+    Works for both shrink (node loss) and grow (node recovery); shapes
+    are unchanged.  A list of nests (``params["stack"]``, one per period)
+    takes one shardings nest for all its periods, as the reference holds
+    them stacked; a dataclass (``AdamWState``) takes one of its kind."""
+    from ..parallel.sharding import NamedSharding
     if isinstance(tree, torch.Tensor):
-        return tree.to(resolve_device(devices))
+        if isinstance(shardings, NamedSharding):
+            return tree
+        return tree.to(resolve_device(shardings))
     if isinstance(tree, dict):
-        return {k: elastic_reshard(v, devices[k]) for k, v in tree.items()}
+        return {k: elastic_reshard(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
+        if isinstance(shardings, dict):
+            return type(tree)(elastic_reshard(t, shardings) for t in tree)
         return type(tree)(elastic_reshard(t, d)
-                          for t, d in zip(tree, devices))
+                          for t, d in zip(tree, shardings))
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: elastic_reshard(getattr(tree, f.name),
+                                    getattr(shardings, f.name))
+            for f in dataclasses.fields(tree)})
     return tree
 
 

@@ -1,13 +1,20 @@
 """The Trainer: the train step, microbatched gradient accumulation (f32
 or int8 + error feedback), checkpoint/restart and failure recovery.
 
-The port of ``repro/runtime/trainer.py`` on one device: it follows the
-reference's ``mesh=None`` branch (params initialised in place, one batch
-per step built on the host and moved to the device) and takes a
-``device`` (default ``"cuda"``).  Gradients come from autograd through
+The port of ``repro/runtime/trainer.py`` on one device (``device``,
+default ``"cuda"``).  Gradients come from autograd through
 :func:`repro_torch.models.loss_fn`; the optimizer updates the parameters
-in place.  ``remesh`` (elastic resharding over a mesh) waits for the
-port's ``parallel/``.
+in place.  With no mesh one batch per step is built on the host and
+moved to the device.  With ``mesh`` (a
+:class:`~repro_torch.parallel.Mesh`, every rank on the card) it follows
+the reference's mesh branch: the mesh is made active, so the models take
+their mesh paths; the params, the optimizer state and the batch get
+their :class:`~repro_torch.parallel.NamedSharding` trees from the
+logical dims, and a prefetching :class:`~repro_torch.data.DataLoader`
+feeds the steps.  The shardings change layout, not values, so a meshed
+run of a model with no mesh branch gives the unmeshed run's losses.
+:meth:`Trainer.remesh` moves the live state to a new mesh (shrink after a
+node loss, grow on recovery) and rebuilds the step and the loader.
 """
 from __future__ import annotations
 
@@ -18,13 +25,16 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
-from ..data import SyntheticLMDataset, to_device
+from ..data import DataLoader, SyntheticLMDataset, to_device
 from ..device import DeviceLike, resolve_device
 from ..models import abstract_init, init_model, loss_fn
 from ..models.common import PyTree, tree_leaves, tree_map, tree_unflatten
 from ..optim import (AdamWState, CompressedAccumulator, adamw_init,
                      adamw_update, clip_by_global_norm, cosine_schedule)
-from .fault import FailureInjector, NodeFailure, StragglerMonitor
+from ..parallel.sharding import (Mesh, NamedSharding, P, logical_spec,
+                                 param_shardings, set_active_mesh)
+from .fault import (FailureInjector, NodeFailure, StragglerMonitor,
+                    elastic_reshard)
 
 
 @dataclasses.dataclass
@@ -115,13 +125,15 @@ def _sync(device: torch.device) -> None:
 
 
 class Trainer:
-    def __init__(self, cfg: Any, tcfg: TrainConfig, *,
+    def __init__(self, cfg: Any, tcfg: TrainConfig,
+                 mesh: Optional[Mesh] = None, *,
                  device: DeviceLike = None,
                  kernels: Optional[Dict[str, Any]] = None,
                  failure_injector: Optional[FailureInjector] = None,
                  lcx_runtime: Optional[Any] = None):
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.kernels = kernels
         self.injector = failure_injector
@@ -140,8 +152,11 @@ class Trainer:
     # -- construction -------------------------------------------------------
     def _build(self) -> None:
         cfg, tcfg = self.cfg, self.tcfg
+        set_active_mesh(self.mesh)
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self.params = init_model(gen, cfg, device=self.device)
+        self.dims = abstract_init(cfg)[1]
+        self._set_shardings()
         self.opt = adamw_init(self.params, cfg.opt_dtype)
         self.lr_fn = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.total_steps)
         self._step_fn = make_train_step(cfg, tcfg, self.lr_fn, self.kernels)
@@ -149,6 +164,38 @@ class Trainer:
             cfg.vocab, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed,
             frontend_len=cfg.frontend_len, frontend_dim=cfg.d_model,
             family=cfg.family)
+        self.loader = self._make_loader(start_step=0)
+
+    def _set_shardings(self) -> None:
+        """The params' and the optimizer state's sharding trees on the
+        current mesh (None with no mesh)."""
+        if self.mesh is None:
+            self.param_sharding = self.opt_sharding = None
+            return
+        self.param_sharding = param_shardings(self.dims, self.params,
+                                              self.mesh)
+        self.opt_sharding = AdamWState(
+            step=NamedSharding(self.mesh, P()), m=self.param_sharding,
+            v=self.param_sharding)
+
+    def batch_sharding(self) -> Dict[str, NamedSharding]:
+        if self.mesh is None:
+            return {}
+        spec3 = NamedSharding(self.mesh, logical_spec(
+            ("batch", None, None), None, self.mesh))
+        spec2 = NamedSharding(self.mesh, logical_spec(
+            ("batch", None), None, self.mesh))
+        out = {"tokens": spec2, "labels": spec2}
+        if self.cfg.family == "audio" or self.cfg.frontend_len:
+            out["frontend"] = spec3
+        return out
+
+    def _make_loader(self, start_step: int) -> Optional[DataLoader]:
+        """A prefetching loader on a mesh, as the reference builds one
+        there (its batch specs are layouts over ranks on this card)."""
+        if self.mesh is None:
+            return None
+        return DataLoader(self.dataset, self.device, start_step=start_step)
 
     def _host_batch(self, step: int) -> Dict[str, torch.Tensor]:
         return to_device(self.dataset.batch(step), self.device)
@@ -174,12 +221,28 @@ class Trainer:
         state, step, extra = restore_checkpoint(self.tcfg.ckpt_dir, target)
         self.params, self.opt = state["params"], state["opt"]
         self.step_count = extra.get("step_count", step)
+        if self.loader is not None:
+            self.loader.close()
+            self.loader = self._make_loader(start_step=self.step_count)
         return True
 
-    def remesh(self, new_mesh: Any) -> None:
-        raise NotImplementedError(
-            "Trainer.remesh moves live state to a new device mesh; the "
-            "port's mesh and sharding layer (parallel/) is not ported yet")
+    # -- elastic remesh -----------------------------------------------------
+    def remesh(self, new_mesh: Optional[Mesh]) -> None:
+        """Move live state to a new mesh (shrink after failure or grow on
+        recovery), rebuild the step and the loader."""
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        set_active_mesh(new_mesh)
+        self.mesh = new_mesh
+        self._set_shardings()
+        if new_mesh is not None:
+            self.params = elastic_reshard(self.params, self.param_sharding)
+            self.opt = elastic_reshard(self.opt, self.opt_sharding)
+        self._step_fn = make_train_step(self.cfg, self.tcfg, self.lr_fn,
+                                        self.kernels)
+        if self.loader is not None:
+            self.loader.close()
+        self.loader = self._make_loader(start_step=self.step_count)
 
     # -- throughput accounting -------------------------------------------
     def _flops_per_step(self) -> float:
@@ -226,7 +289,10 @@ class Trainer:
         while self.step_count < end:
             if self.injector is not None:
                 self.injector.check(self.step_count)
-            batch = self._host_batch(self.step_count)
+            if self.loader is not None:
+                _, batch = next(self.loader)
+            else:
+                batch = self._host_batch(self.step_count)
             _sync(self.device)
             t0 = time.perf_counter()
             self.params, self.opt, metrics = self._step_fn(

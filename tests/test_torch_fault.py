@@ -5,9 +5,8 @@ port (``repro_torch.core``, ``repro_torch.runtime``, ``repro_torch.amt``)
 and returns plain data — delivered payloads, heartbeat events, migration
 reports, executor and failover stats — that must be equal.  Payloads are
 scalars made from the same Python numbers, so they compare exactly.
-
-(The gpipe case of tests/test_failover.py waits for the port of
-``parallel/``.)"""
+(The gpipe case of tests/test_failover.py is in
+tests/test_torch_pipeline.py.)"""
 import dataclasses
 import re
 import types

@@ -87,6 +87,23 @@ def test_route(router, norm_topk):
     _close(taux.item(), float(jaux), ROUTER_TOL)
 
 
+@pytest.mark.parametrize("router", ["softmax", "sigmoid"])
+def test_route_breaks_ties_like_reference(router):
+    """Tied scores (a zero row: the padding of the token-sliced expert
+    parallelism) choose the lower expert ids, as ``lax.top_k`` does;
+    ``torch.topk`` chose others, and the aux loss differed."""
+    jc, tc = _cfgs(router_type=router)
+    jp, tp = _both(_params(jc))
+    x = _x(1, 6, jc.d_model)
+    x[2:4] = 0.0
+    jids, jw, jaux = jm.route(jc, jp["router"], jnp.asarray(x))
+    tids, tw, taux = tm.route(tc, tp["router"], torch.from_numpy(x))
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    assert tids[2].tolist() == [0, 1]
+    _close(tw.numpy(), jw, ROUTER_TOL)
+    _close(taux.item(), float(jaux), ROUTER_TOL)
+
+
 @pytest.mark.parametrize("n_tokens", [1, 8, 31, 498, 4096])
 @pytest.mark.parametrize("shape", [(8, 2, 1.0), (128, 8, 1.25), (16, 2, 8.0)])
 def test_capacity(n_tokens, shape):

@@ -151,3 +151,34 @@ def test_compressed_accumulator_matches_reference():
         np.testing.assert_allclose(ta[key]["err"].numpy(),
                                    np.asarray(ja[key]["err"]), atol=1e-6)
     _close(_np(t.value(ta, 3)), j.value(ja, 3), 1e-6)
+
+
+@pytest.mark.parametrize("n_ranks,width", [(2, 4), (4, 33), (8, 64),
+                                           (3, 7)])
+@pytest.mark.parametrize("feedback", [False, True])
+def test_compressed_psum_matches_reference(n_ranks, width, feedback):
+    """The reference's ``compressed_psum`` under ``jax.vmap(axis_name=
+    "dp")`` against the port's on the rank-stacked ``[n, width]`` under
+    ``ranks.bind_axis``: the mean on every rank and each rank's residual
+    equal (the same f32 operations on the same int8 codes and int32 sum),
+    and the mean within the shared grid's half step, ``scale / 2``, of the
+    exact one (tests/test_property.py's bound)."""
+    from repro_torch.core import ranks
+    rng = np.random.default_rng(n_ranks * 100 + width)
+    xs = rng.standard_normal((n_ranks, width)).astype(np.float32)
+    err = (rng.standard_normal((n_ranks, width)) * 1e-3).astype(np.float32) \
+        if feedback else np.zeros_like(xs)
+    jout, jerr = jax.vmap(lambda x, e: jopt.compressed_psum(x, "dp", e),
+                          axis_name="dp")(jnp.asarray(xs), jnp.asarray(err))
+    with ranks.bind_axis("dp", n_ranks):
+        tout, terr = topt.compressed_psum(torch.from_numpy(xs), "dp",
+                                          torch.from_numpy(err))
+    assert tout.shape == xs.shape and terr.dtype == torch.float32
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(terr.numpy(), np.asarray(jerr))
+    scale = np.abs(xs + err).max() / 127.0
+    exact = (xs + err).mean(0)
+    assert np.abs(tout.numpy() - exact).max() <= scale / 2 + 1e-7
+    with pytest.raises(ValueError):
+        with ranks.bind_axis("dp", n_ranks + 1):
+            topt.compressed_psum(torch.from_numpy(xs), "dp")

@@ -200,10 +200,101 @@ def test_grad_accum_close_to_one_step(compressed, atol):
 
 
 def test_remesh_waits_for_parallel():
+    """``remesh`` moves an unmeshed trainer onto a mesh (the port's
+    ``parallel/``): the state is kept bit for bit, the shardings and the
+    loader are built, and training goes on."""
+    from repro_torch.parallel import Mesh, NamedSharding, active_mesh
     tr = Trainer(tiny_cfg(), TrainConfig(seq_len=8, global_batch=2),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    tr._run_until(1)
+    before = [t.detach().clone() for t in tree_leaves(tr.params)]
+    mesh = Mesh((2, 1), ("data", "model"))
+    tr.remesh(mesh)
+    try:
+        assert active_mesh() is mesh and tr.loader is not None
+        assert isinstance(tr.param_sharding["embed"]["emb"], NamedSharding)
+        for a, b in zip(before, tree_leaves(tr.params)):
+            assert torch.equal(a, b)
+        tr._run_until(2)
+        assert tr.step_count == 2
+    finally:
         tr.remesh(None)
+    assert active_mesh() is None and tr.loader is None
+
+
+# -- the trainer on a mesh: tests/test_multidevice.py's cases ---------------
+def test_train_step_sharded_matches_single_device():
+    """``Trainer(mesh=(data=2, model=4))`` and a meshless trainer, two
+    steps each: the params bit for bit (the shardings change layout, not
+    values; the reference allows 2e-4 for its compiler's resharding),
+    and the mesh's param and batch specs are the reference's."""
+    from repro.models.model import abstract_init as jabs
+    from repro.parallel import sharding as js
+    from repro_torch.parallel import Mesh, active_mesh
+    tcfg = TrainConfig(lr=1e-3, warmup=0, total_steps=4, seq_len=32,
+                       global_batch=8)
+    mesh = Mesh((2, 4), ("data", "model"))
+    tr_m = Trainer(tiny_cfg(), tcfg, mesh=mesh, device="cpu")
+    try:
+        assert active_mesh() is mesh and tr_m.loader is not None
+        tr_m._run_until(2)
+        jcfg = jbase.ModelConfig(**{**dict(
+            name="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+            d_ff=128, vocab=211, remat="none"), "dtype": jnp.float32,
+            "param_dtype": jnp.float32})
+        jproto, jdims = jabs(jcfg)
+        jm = js.abstract_mesh((2, 4), ("data", "model"))
+        flat, _ = jax.tree_util.tree_flatten_with_path(
+            js.param_shardings(jdims, jproto, jm),
+            is_leaf=lambda t: hasattr(t, "spec"))
+        want = {jax.tree_util.keystr(k): tuple(v.spec) for k, v in flat}
+        def specs(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from specs(v, f"{prefix}[{k!r}]")
+                else:
+                    yield f"{prefix}[{k!r}]", tuple(v.spec)
+        got = dict(specs(tr_m.param_sharding))
+        assert got == want
+        assert {k: tuple(v.spec) for k, v in tr_m.batch_sharding().items()} \
+            == {"tokens": ("data",), "labels": ("data",)}
+    finally:
+        tr_m.remesh(None)
+    tr_1 = Trainer(tiny_cfg(), tcfg, device="cpu")
+    tr_1._run_until(2)
+    for a, b in zip(tree_leaves(tr_m.params), tree_leaves(tr_1.params)):
+        assert torch.equal(a, b)
+
+
+def test_elastic_remesh_preserves_state():
+    """Lose half the data-parallel ranks: ``remesh`` from (data=4,
+    model=2) to ``shrink_mesh_shape(..., lost=4)`` = (2, 2) keeps the
+    params and optimizer state bit for bit, and training goes on, with
+    the losses of a trainer that never remeshed."""
+    from repro_torch.parallel import Mesh
+    from repro_torch.runtime import shrink_mesh_shape
+    tcfg = TrainConfig(lr=1e-3, warmup=0, total_steps=8, seq_len=32,
+                       global_batch=8, log_every=1)
+    tr = Trainer(tiny_cfg(), tcfg, mesh=Mesh((4, 2), ("data", "model")),
+                 device="cpu")
+    ref = Trainer(tiny_cfg(), tcfg, device="cpu")
+    try:
+        tr._run_until(2)
+        before = [t.clone() for t in tree_leaves({"p": tr.params,
+                                                  "o": tr.opt})]
+        shape = shrink_mesh_shape({"data": 4, "model": 2}, lost=4)
+        assert shape == {"data": 2, "model": 2}
+        tr.remesh(Mesh(tuple(shape.values()), tuple(shape)))
+        assert tr.mesh.shape == shape
+        for a, b in zip(before, tree_leaves({"p": tr.params, "o": tr.opt})):
+            assert torch.equal(a, b)
+        tr._run_until(4)
+        assert tr.step_count == 4
+    finally:
+        tr.remesh(None)
+    ref._run_until(4)
+    assert [m["loss"] for m in tr.metrics_log] == \
+        [m["loss"] for m in ref.metrics_log]
 
 
 # -- model flops and logical dims --------------------------------------------
