@@ -116,9 +116,26 @@ non-zero:
    ``Trainer(mesh=(data=4, model=2))`` for 2 steps, ``remesh`` to (2, 2)
    and 2 more, losses bitwise equal to an unmeshed run's.
 
+17. the causal-skip schedule (after training, before the mesh phases):
+   qwen2-0.5b's loss and gradients at the train phase's 1024 x 8 in bf16
+   through ``loss_fn(impl="chunked")`` and ``"chunked_causal_skip"``,
+   timed once each after a warm-up round, with peak memory; losses within
+   one bf16 step, no kernel launches; in f32 at 2 layers the loss and
+   every gradient within 1e-5;
+18. the example scripts (after the mesh phases): ``examples/torch_*.py``
+   on the card in child processes started together, each exiting 0 with
+   its ``... OK`` line (``torch_train_lm.py`` at 300 steps);
+19. the dry run: ``run_cell("qwen2-0.5b", "train_4k")`` on the 16 x 16
+   mesh (256 ranks stacked on ``meta``), its ``RooflineReport`` on the
+   H100's constants, and the train phase's qwen2-0.5b step counted the
+   same way on one card: its compute and memory terms must lie below the
+   step time phase 15 measured.
+
 Phase 3 also checks flash at internlm2-20b's, command-r-plus-104b's,
 llava's and hubert's attention shapes (head dim 80, not causal) and the
-grouped matmul at deepseek-v3's expert shape (256 experts, 7168 <-> 2048).
+grouped matmul at deepseek-v3's expert shape (256 experts, 7168 <-> 2048),
+and that ``backend="xla"`` on CUDA tensors raises, naming each kernel's
+plain function, with no launch.
 
 Output: one line per check, then a ``{"kernels": [...]}`` JSON line
 (flash attention, SSD scan, ring all-gather, grouped matmul; the flash
@@ -140,9 +157,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): the
+# package's constants (``repro_torch.launch.mesh``), read by
+# ``_load_peaks`` once ``src`` is on the path
+PEAK_BYTES_PER_S = 0.0
+PEAK_FLOPS = {}
 
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_NEW, SERVE_REQUESTS = 8, 1024, 32, 16
 CHECK_SEQS = (1, 7, 100, 512, 1024)
@@ -281,6 +300,31 @@ TRAIN_MESH_LOST, TRAIN_MESH_STEPS = 4, 2
 # dq, dk, dv within 1e-5 of its reference's largest magnitude (the CPU
 # at this shape: 1.2e-6)
 FLASH_BWD_RTOL = 1e-5
+# the causal-skip schedule against "chunked": qwen2-0.5b's bf16 loss at
+# the train phase's shape.  Both sum the same blocks below the diagonal
+# (the skip schedule visits no other), the chunked one every q chunk in one
+# product with its custom backward, the skip one a product per q chunk, so
+# a bf16 activation may round the other way after any layer: the losses
+# are held to one bf16 step (2^-7) of the loss.  In f32 at 2 layers the
+# loss and every gradient are held to 1e-5.
+SKIP_LOSS_RTOL = 2.0 ** -7
+SKIP_F32_LAYERS, SKIP_F32_TOL = 2, 1e-5
+SKIP_REPS = 1
+# the port's example scripts and the line each prints last
+EXAMPLES = (("torch_quickstart.py", "quickstart OK"),
+            ("torch_serve_lm.py", "serve_lm OK"),
+            ("torch_train_lm.py", "train_lm OK"))
+EXAMPLE_TIMEOUT_S = 300
+# the dry run's production cell (counted on ``meta``: seconds of host time)
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k")
+
+
+def _load_peaks() -> None:
+    global PEAK_BYTES_PER_S
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         PEAK_FLOPS_F32)
+    PEAK_BYTES_PER_S = HBM_BW
+    PEAK_FLOPS.update(bfloat16=PEAK_FLOPS_BF16, float32=PEAK_FLOPS_F32)
 
 
 def log(*a) -> None:
@@ -676,6 +720,61 @@ def phase_kernel_check(serve_lens, moe_lens):
     log(f"flash checks and timing launched the kernel "
         f"{fa.launches - launches0} times (not counted below)")
     return path_err, times
+
+
+def phase_backend_xla():
+    """``backend="xla"`` on CUDA tensors: each entry point of
+    ``kernels.ops`` (and ``model_kernels(cfg, backend="xla")``'s hooks)
+    raises a ValueError that names its ``*_plain`` function, and launches
+    no kernel: on the card a wrapper launches its kernel or raises."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import ranks
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    rnd = lambda *shape, dt=bf16: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda").to(dt)
+    q, k, v = rnd(1, 14, 64, 64), rnd(1, 2, 64, 64), rnd(1, 2, 64, 64)
+    x, bm, cm = rnd(1, 64, 4, 32), rnd(1, 64, 4, 16), rnd(1, 64, 4, 16)
+    dt = torch.nn.functional.softplus(rnd(1, 64, 4, dt=torch.float32))
+    a = -torch.exp(rnd(4, dt=torch.float32))
+    xb, w = rnd(4, 8, 64), rnd(4, 64, 32)
+    r = rnd(4, 1, 1000)
+    hooks = ops.model_kernels(get_config("qwen2-0.5b"), backend="xla")
+
+    def ring():
+        with ranks.bind_axis("r", 4):
+            return ops.ring_all_gather(r, "r", axis_size=4, backend="xla")
+
+    calls = {
+        "flash_attention_plain": lambda: ops.flash_attention(
+            q, k, v, causal=True, block_q=256, block_k=256, backend="xla"),
+        "ssd_scan_plain": lambda: ops.ssd_scan(x, dt, a, bm, cm, chunk=256,
+                                               backend="xla"),
+        "moe_gmm_plain": lambda: ops.moe_gmm(xb, w, backend="xla"),
+        "ring_all_gather_plain": ring,
+        "flash_attention_plain (hook)": lambda: hooks["flash_attention"](
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, scale=0.125),
+        "moe_gmm_plain (hook)": lambda: hooks["moe_gmm"](xb, w),
+    }
+    reset_counts()
+    for plain, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            require(f"call {plain.split()[0]} " in str(e),
+                    f'backend="xla" raised without naming {plain}: {e}')
+        else:
+            require(False, f'backend="xla" on CUDA tensors ran ({plain}): '
+                    f"a wrapper must launch its kernel or raise on the card")
+    counts = read_counts()
+    require(not any(counts.values()),
+            f'backend="xla" launched a kernel: {counts}')
+    log(f'backend="xla" on CUDA tensors: {len(calls)} calls each raised '
+        f"ValueError naming {sorted({p.split()[0] for p in calls})}; "
+        f"kernel launches {counts}")
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype, groups=None):
@@ -2133,7 +2232,8 @@ def _train_cfg(arch, steps, **overrides):
 def phase_train_qwen():
     """qwen2-0.5b: run A uninterrupted, run B with checkpoints and a node
     failure, the checkpoint's write and restore times, the accumulators.
-    Returns nothing; fails on any check."""
+    Returns run A's median step ms over its steps after the first; fails
+    on any check."""
     import shutil
     import tempfile
     import torch
@@ -2149,6 +2249,8 @@ def phase_train_qwen():
     require(loss_a[TRAIN_STEPS] < loss_a[1],
             f"the loss did not fall: {loss_a}")
     gnorm1 = tr.metrics_log[0]["grad_norm"]
+    steady = sorted(m["dt"] * 1e3 for m in tr.metrics_log[1:])
+    step_ms = steady[len(steady) // 2]
     batch0 = tr._host_batch(0)
     nxt = tr._host_batch(tr.step_count)
     _profiled(f"{cfg.name} train step (seq {TRAIN_SEQ} x batch "
@@ -2219,6 +2321,7 @@ def phase_train_qwen():
                 "accumulated gradient norm differs")
         del params, opt, step, m
         release()
+    return step_ms
 
 
 def phase_train_short(arch, cut=None, **overrides):
@@ -2277,9 +2380,9 @@ def phase_flash_backward():
 def phase_train():
     """Phase 15: every training path, with the four kernels' launch counts
     set to 0 before and read after (the reference trains with
-    ``kernels=None``)."""
+    ``kernels=None``).  Returns the qwen2-0.5b step's median ms."""
     reset_counts()
-    phase_train_qwen()
+    step_ms = phase_train_qwen()
     phase_train_short("mamba2-130m")
     phase_train_short("qwen3-moe-30b-a3b",
                       cut="4 of 48 layers (~3.1 G params: with bf16 grads "
@@ -2290,6 +2393,180 @@ def phase_train():
     log(f"train: kernel launches across every training phase {counts}")
     require(not any(counts.values()),
             f"a TPU-kernel port launched during training: {counts}")
+    return step_ms
+
+
+# ---------------------------------------------------------------------------
+# the causal-skip schedule, the example scripts, the dry run
+# ---------------------------------------------------------------------------
+def _loss_and_grads(cfg, params, batch, impl):
+    """``loss_fn(..., impl=impl)`` and the gradient of every params leaf."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.models.common import tree_leaves
+    loss, _ = loss_fn(cfg, params, batch, impl=impl)
+    grads = torch.autograd.grad(loss, list(tree_leaves(params)),
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), grads
+
+
+def phase_causal_skip():
+    """The causal-skip schedule (``impl="chunked_causal_skip"``) against
+    the default ``"chunked"``: qwen2-0.5b's loss and gradients at the
+    train phase's seq 1024 x batch 8 in bf16 (4 blocks of 256: 10 of the
+    16 score blocks), forward + backward timed alternately after a
+    warm-up round, with its peak memory; the losses within one bf16 step; no
+    kernel launches; then in f32 at 2 layers, loss and every gradient
+    within ``SKIP_F32_TOL``."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.models import init_model
+    from repro_torch.models.common import tree_leaves
+    impls = ("chunked", "chunked_causal_skip")
+    cfg = get_config("qwen2-0.5b")
+    batch = to_device(make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                      torch.device("cuda"))
+    reset_counts()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    ms, peak, loss, gnorm = {i: [] for i in impls}, {}, {}, {}
+    for rep in range(SKIP_REPS + 1):          # round 0 warms up
+        for impl in impls:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            l, g = _loss_and_grads(cfg, params, batch, impl)
+            torch.cuda.synchronize()
+            if rep:
+                ms[impl].append((time.perf_counter() - t0) * 1e3)
+            peak[impl] = torch.cuda.max_memory_allocated()
+            loss[impl] = float(l)
+            gnorm[impl] = float(torch.sqrt(sum(
+                (x.float() ** 2).sum() for x in g)))
+            del g
+    counts = read_counts()
+    for impl in impls:
+        log(f"causal skip {impl}: qwen2-0.5b bf16 loss + grads, seq "
+            f"{TRAIN_SEQ} x batch {TRAIN_BATCH}: host ms "
+            f"{[round(x, 3) for x in ms[impl]]} (alternating), loss "
+            f"{loss[impl]:.6f}, grad norm {gnorm[impl]:.6f}, "
+            f"max_memory_allocated {peak[impl]} bytes; card {smi()}")
+    diff = abs(loss[impls[0]] - loss[impls[1]])
+    bound = SKIP_LOSS_RTOL * abs(loss[impls[0]])
+    log(f"causal skip: bf16 loss difference {diff:.3e} (bound {bound:.3e}),"
+        f" grad-norm difference {abs(gnorm[impls[0]] - gnorm[impls[1]]):.3e};"
+        f" kernel launches {counts}")
+    require(not any(counts.values()),
+            f"a TPU-kernel port launched in the causal-skip phase: {counts}")
+    require(diff <= bound, f"causal skip: bf16 losses {loss} differ")
+    del params
+    release()
+    cfg32 = dataclasses.replace(cfg, n_layers=SKIP_F32_LAYERS,
+                                dtype=torch.float32,
+                                param_dtype=torch.float32)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0),
+                        cfg32, device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    (la, ga), (lb, gb) = [_loss_and_grads(cfg32, params, batch, i)
+                          for i in impls]
+    dl = abs(float(la) - float(lb))
+    dg = max(float((x - y).abs().max()) for x, y in zip(ga, gb))
+    log(f"causal skip f32 check ({SKIP_F32_LAYERS} layers, seq {TRAIN_SEQ}"
+        f" x batch {TRAIN_BATCH}): loss {float(la):.7f} vs {float(lb):.7f},"
+        f" difference {dl:.3e}; largest gradient difference {dg:.3e} "
+        f"(bound {SKIP_F32_TOL})")
+    require(dl <= SKIP_F32_TOL and dg <= SKIP_F32_TOL,
+            "causal skip: the f32 loss or gradients differ from chunked")
+    del params, ga, gb
+    release()
+
+
+def phase_examples():
+    """The port's three example scripts on the card, in child processes
+    started together; each must exit 0 and print its ``... OK`` line
+    (``torch_train_lm.py`` at its default 300 steps)."""
+    procs = []
+    t0 = time.perf_counter()
+    for script, _ in EXAMPLES:
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=EXAMPLE_TIMEOUT_S))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for (script, ok), proc, (out, err) in zip(EXAMPLES, procs, outs):
+        lines = out.splitlines()
+        tail = [ln for ln in lines if "OK" in ln or "served" in ln
+                or "loss:" in ln or "recovered" in ln or "ring" in ln]
+        log(f"example {script}: exit {proc.returncode}; " + " | ".join(
+            ln.strip() for ln in tail))
+        require(proc.returncode == 0 and ok in lines,
+                f"example {script} failed: {out[-2000:]} {err[-2000:]}")
+    log(f"examples: {len(EXAMPLES)} scripts in child processes, "
+        f"{wall:.1f} s wall together")
+
+
+def phase_dryrun(train_step_ms):
+    """The dry run: one production cell (``DRYRUN_CELL`` on the 16 x 16
+    mesh, 256 ranks stacked on ``meta``) through ``run_cell``, and the
+    train phase's own qwen2-0.5b step (seq 1024 x batch 8, one card, no
+    mesh) counted the same way: its compute and memory terms on the
+    H100's constants must lie below the step time the train phase
+    measured, or the counting is wrong."""
+    import torch
+    from repro_torch.analysis.roofline import analyze_compiled, count_step
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_train_bundle
+    from repro_torch.models import abstract_init
+    from repro_torch.runtime import TrainConfig
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape)
+    cell_s = time.perf_counter() - t0
+    require(rec["ok"] and rec["compute_s"] > 0 and rec["memory_s"] > 0,
+            f"dry run {arch} {shape}: {rec}")
+    log(f"dryrun {arch} {shape} 16x16: {cell_s:.1f} s (build "
+        f"{rec['t_build_s']:.1f} s, counted meta run {rec['t_count_s']:.1f}"
+        f" s, {rec['n_ops']} ops); per device {rec['hlo_flops']:.6e} flop, "
+        f"{rec['hlo_bytes']:.6e} B, useful {rec['useful_ratio']:.4f}")
+    cfg = get_config("qwen2-0.5b")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup=2, total_steps=TRAIN_STEPS,
+                       seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    bundle = build_train_bundle(cfg, None, TRAIN_SEQ, TRAIN_BATCH,
+                                tcfg=tcfg)
+    counted = count_step(bundle, t_build_s=time.perf_counter() - t0)
+    report = analyze_compiled(
+        counted, arch=cfg.name, shape=f"{TRAIN_SEQ}x{TRAIN_BATCH}",
+        mesh_name="1 card", chips=1, cfg=cfg,
+        params_proto=abstract_init(cfg)[0], kind="train",
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    bound_ms = max(report.compute_s, report.memory_s) * 1e3
+    log(report.summary())
+    log(f"dryrun one-card qwen2-0.5b train step (seq {TRAIN_SEQ} x batch "
+        f"{TRAIN_BATCH}): counted {report.hlo_flops:.6e} flop "
+        f"(compute {report.compute_s * 1e3:.3f} ms), "
+        f"{report.hlo_bytes:.6e} B (memory {report.memory_s * 1e3:.3f} ms), "
+        f"{counted.totals.n_ops} ops; bound {bound_ms:.3f} ms against the "
+        f"train phase's measured step {train_step_ms:.3f} ms "
+        f"({100 * bound_ms / train_step_ms:.1f}%); useful_ratio "
+        f"{report.useful_ratio:.4f} (6 N_active D / counted flops); card "
+        f"{smi()}")
+    require(bound_ms < train_step_ms,
+            f"the counted bound {bound_ms:.3f} ms is above the measured "
+            f"step {train_step_ms:.3f} ms: the counting is wrong")
 
 
 # ---------------------------------------------------------------------------
@@ -2943,6 +3220,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    _load_peaks()
     if sys.argv[1:2] == ["--serve"]:
         return serve_only(sys.argv[2:])
     t0 = time.perf_counter()
@@ -2969,6 +3247,7 @@ def main() -> int:
         [len(p) for p in prompts], [len(p) for p in moe_prompts])
     ssd = phase_ssd_check([len(p) for p in m_prompts])
     ring = phase_ring_check()
+    phase_backend_xla()
     gmm_times, gmm_err, ds_times = phase_gmm_check(
         moe_caps, capacity(moe_cfg, EP_TOKENS),
         [capacity(ds_cfg, len(p)) for p in ds_prompts]
@@ -3035,8 +3314,12 @@ def main() -> int:
     phase_hubert()
     release()
     mark("frontends")
-    phase_train()
+    train_step_ms = phase_train()
     mark("training")
+    # this slice: the causal-skip schedule, before the mesh phases (it is
+    # profiled)
+    phase_causal_skip()
+    mark("causal skip")
     # this slice: the mesh paths, last: the EP prefill's ~10^5 launches in
     # a second and the pp step's profile of ~8 x 10^4 kernels each leave
     # torch.profiler recording no kernel in later windows (measured on
@@ -3054,6 +3337,12 @@ def main() -> int:
                     (res_times, ds_moe * RES_TICKS)]
     gmm = gmm_row(gmm_entries, gmm_err, gmm_launches + ep_gmm + res_gmm)
     mark("mesh paths")
+    # this slice: the example scripts in child processes and the dry run
+    # (neither profiled: they may follow the mesh phases)
+    phase_examples()
+    mark("examples")
+    phase_dryrun(train_step_ms)
+    mark("dryrun")
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")

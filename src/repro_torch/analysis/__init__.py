@@ -1,3 +1,6 @@
-from .roofline import active_params, model_flops
+from .roofline import (CollectiveOp, CountedStep, RooflineReport,
+                       active_params, analyze_compiled, count_step,
+                       model_flops)
 
-__all__ = ["active_params", "model_flops"]
+__all__ = ["CollectiveOp", "CountedStep", "RooflineReport", "active_params",
+           "analyze_compiled", "count_step", "model_flops"]

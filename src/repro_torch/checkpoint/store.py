@@ -130,13 +130,24 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 def restore_checkpoint(ckpt_dir: str, target: PyTree,
                        step: Optional[int] = None,
+                       shardings: Optional[PyTree] = None, *,
                        device: DeviceLike = None
                        ) -> Tuple[PyTree, int, Dict[str, Any]]:
     """Restore into the structure of ``target`` (its leaves give the
     shapes and dtypes; each stored leaf is cast to its target's dtype).
-    The tensors go to ``device``, by default each target leaf's own.
-    Raises ``KeyError`` for a leaf the checkpoint lacks and
-    ``ValueError`` for a shape that differs, as the reference does."""
+
+    ``shardings`` is the reference's tree of
+    :class:`~repro_torch.parallel.NamedSharding` mirroring ``target``;
+    every rank of the port's mesh lives on the one card, so it places
+    every leaf there: on ``device``, by default the card (``"cuda"``).
+    Without ``shardings`` the tensors go to ``device``, by default each
+    target leaf's own.  A fourth positional argument is ``shardings``, as
+    in the reference, never a device.  Raises ``KeyError`` for a leaf the
+    checkpoint lacks and ``ValueError`` for a shape that differs, as the
+    reference does."""
+    if shardings is not None:
+        _check_shardings(shardings)
+        device = resolve_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
@@ -161,6 +172,29 @@ def restore_checkpoint(ckpt_dir: str, target: PyTree,
         loaded[name] = _tensor(arr, entry["dtype"]).to(
             device=dev or first.device, dtype=first.dtype)
     return (_rebuild(target, loaded), step, manifest.get("extra", {}))
+
+
+def _check_shardings(shardings: PyTree) -> None:
+    """``shardings`` must be a tree of ``NamedSharding`` (a device passed
+    where the reference passes shardings is refused, not read)."""
+    from ..parallel.sharding import NamedSharding
+    if isinstance(shardings, NamedSharding):
+        return
+    if isinstance(shardings, dict):
+        for v in shardings.values():
+            _check_shardings(v)
+        return
+    if isinstance(shardings, (list, tuple)):
+        for v in shardings:
+            _check_shardings(v)
+        return
+    if dataclasses.is_dataclass(shardings):
+        for f in dataclasses.fields(shardings):
+            _check_shardings(getattr(shardings, f.name))
+        return
+    raise TypeError(f"shardings must be a tree of NamedSharding, got "
+                    f"{type(shardings).__name__} {shardings!r}; pass a "
+                    f"device as device=")
 
 
 def _rebuild(tree: PyTree, loaded: Dict[str, torch.Tensor],

@@ -177,6 +177,32 @@ ARCH_IDS = [
     "llava-next-mistral-7b",
 ]
 
+# input-shape cells (LM family): seq_len x global_batch ---------------------
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+# Shape-cell applicability, as the reference's:
+#  - long_500k only for sub-quadratic archs (ssm/hybrid decode)
+#  - decode shapes skipped for encoder-only archs
+LONG_OK = {"mamba2-130m", "jamba-1.5-large-398b"}
+ENCODER_ONLY = {"hubert-xlarge"}
+
+
+def cells() -> List[Tuple[str, str]]:
+    out: List[Tuple[str, str]] = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            if shape == "long_500k" and arch not in LONG_OK:
+                continue
+            if SHAPES[shape]["kind"] == "decode" and arch in ENCODER_ONLY:
+                continue
+            out.append((arch, shape))
+    return out
+
 
 def register(name: str):
     def deco(fn):

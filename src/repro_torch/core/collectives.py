@@ -20,7 +20,8 @@ in the last bits.  On one card all ranks share one stream, so
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import functools
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +77,25 @@ def _lcx_shift(x: Any, k: int, rt: Runtime, device: Device, tag: int) -> Any:
     return ev.payload
 
 
+def _tapped(kind: str, gathered: bool = False
+            ) -> Callable[[Callable[[Any], Any]], Callable[[Any], Any]]:
+    """Report each call of the decorated ``_invoke`` to the collective
+    taps (``ops.collective_tap``): ``x``'s per-rank shape (for an
+    all-gather, the gathered one) over ``x.shape[0]`` ranks."""
+    def deco(invoke: Callable[[Any], Any]) -> Callable[[Any], Any]:
+        @functools.wraps(invoke)
+        def run(self) -> Any:
+            if not lcx_ops._TAPS:           # no tap open: no extra work
+                return invoke(self)
+            x = self.arg("x")
+            n = x.shape[0] if x.dim() else 1
+            shape = ((n,) if gathered else ()) + tuple(x.shape[1:])
+            with lcx_ops.collective_region(kind, x.dtype, shape, n):
+                return invoke(self)
+        return run
+    return deco
+
+
 # ---------------------------------------------------------------------------
 # all-gather (ring)
 # ---------------------------------------------------------------------------
@@ -88,6 +108,7 @@ class all_gather_x(FlexOp):
     _optional = dict(device=None, runtime=None, endpoint=None,
                      backend="ring", tiled=True, tag=0)
 
+    @_tapped("all-gather", gathered=True)
     def _invoke(self) -> Any:
         x = self.arg("x")
         rt, dev = _resolve_dev(self)
@@ -123,6 +144,7 @@ class reduce_scatter_x(FlexOp):
     _optional = dict(device=None, runtime=None, endpoint=None,
                      backend="ring", tag=0)
 
+    @_tapped("reduce-scatter")
     def _invoke(self) -> Any:
         x = self.arg("x")
         rt, dev = _resolve_dev(self)
@@ -156,6 +178,7 @@ class all_reduce_x(FlexOp):
     _optional = dict(device=None, runtime=None, endpoint=None,
                      backend="ring", tag=0)
 
+    @_tapped("all-reduce")
     def _invoke(self) -> Any:
         x = self.arg("x")
         rt, dev = _resolve_dev(self)
@@ -189,6 +212,7 @@ class all_to_all_x(FlexOp):
     _optional = dict(device=None, runtime=None, endpoint=None,
                      backend="pairwise", tag=0)
 
+    @_tapped("all-to-all")
     def _invoke(self) -> Any:
         x = self.arg("x")
         rt, dev = _resolve_dev(self)
@@ -216,6 +240,7 @@ class broadcast_x(FlexOp):
     _positional = ("x",)
     _optional = dict(device=None, runtime=None, endpoint=None, root=0)
 
+    @_tapped("all-reduce")
     def _invoke(self) -> Any:
         x = self.arg("x")
         _, dev = _resolve_dev(self)

@@ -17,9 +17,10 @@ rank's slice, as the reference counts inside its per-rank trace.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +34,44 @@ from .resources import (CompletionObject, CompletionQueue, Device, Endpoint,
                         IMMEDIATE_RCOMP_BITS, IMMEDIATE_TAG_BITS,
                         MAX_RCOMP_BITS, MAX_TAG_BITS, resolve_resources,
                         runtime, signal_error)
+
+
+# ---------------------------------------------------------------------------
+# Collective taps (what ``analysis.hlo_walk`` counts)
+# ---------------------------------------------------------------------------
+_TAPS: List[Callable[..., None]] = []
+_TAP_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def collective_tap(listener: Callable[..., None]) -> Iterator[None]:
+    """While open, call ``listener(kind, dtype, per_rank_shape, group,
+    n_groups)`` for every collective (``collectives.py``) and every
+    point-to-point transfer run by :func:`progress`: the outermost only,
+    so a ring collective's puts are not counted again.  ``kind`` is the
+    reference's HLO name (``all-gather``, ``reduce-scatter``,
+    ``all-reduce``, ``all-to-all``, ``collective-permute``)."""
+    _TAPS.append(listener)
+    try:
+        yield
+    finally:
+        _TAPS.remove(listener)
+
+
+@contextlib.contextmanager
+def collective_region(kind: str, dtype: torch.dtype,
+                      per_rank_shape: Tuple[int, ...],
+                      group: int) -> Iterator[None]:
+    """Report one collective to the taps, then run its body with the
+    taps muted."""
+    if _TAP_DEPTH[0] == 0:
+        for tap in list(_TAPS):
+            tap(kind, dtype, per_rank_shape, group, 1)
+    _TAP_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _TAP_DEPTH[0] -= 1
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +508,10 @@ def _permute(value: Any, dev: Device, perm: Optional[Perm]) -> Any:
             f"axis {axis!r} has {dev.axis_size}")
     dev.stats["transfers"] += 1
     dev.stats["bytes_moved"] += _nbytes(value)
+    if _TAPS and _TAP_DEPTH[0] == 0:
+        for tap in list(_TAPS):
+            tap("collective-permute", value.dtype, tuple(value.shape[1:]),
+                len(pairs), 1)
     return ranks.permute(value, pairs)
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -52,6 +52,25 @@ def bound_names() -> frozenset:
     """Names of the axes bound on this thread (the reference's axis env
     inside a ``shard_map`` / ``vmap`` region)."""
     return frozenset(name for name, _ in _stack())
+
+
+_REPLICATED_TAPS: List[Callable[[torch.Tensor, Dict[str, int]], None]] = []
+
+
+def bound_sizes() -> Dict[str, int]:
+    """The bound axes and their sizes (the innermost binding of each)."""
+    return dict(_stack())
+
+
+def replicated(value: torch.Tensor) -> torch.Tensor:
+    """Mark ``value``, made inside a rank-stacked region, as one value that
+    every rank of the bound axes holds, as the reference's psum / pmax
+    over them returns it.  Returns ``value`` unchanged; a listener
+    (``analysis.hlo_walk``) learns that work on it after the region is
+    repeated on each rank of those axes."""
+    for tap in list(_REPLICATED_TAPS):
+        tap(value, bound_sizes())
+    return value
 
 
 def permute(value: torch.Tensor, pairs: Sequence[Tuple[int, int]]

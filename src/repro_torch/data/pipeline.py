@@ -115,12 +115,24 @@ class DataLoader:
     """Prefetching loader: a background thread keeps ``prefetch`` batches
     ready on ``device`` (default ``"cuda"``; raises where CUDA is absent).
     Yields ``(step, batch)`` from ``start_step`` on; :meth:`close` stops
-    the thread."""
+    the thread.
+
+    ``shardings`` is the reference's map of input name to
+    :class:`~repro_torch.parallel.NamedSharding` (the trainer's batch
+    specs), in the reference's place.  Every rank lives on the one card,
+    so each batch goes there whole; the map is kept as
+    ``self.shardings``."""
 
     def __init__(self, dataset: SyntheticLMDataset,
-                 device: DeviceLike = None, start_step: int = 0,
-                 prefetch: int = 2) -> None:
+                 shardings: Optional[Dict[str, Any]] = None,
+                 start_step: int = 0, prefetch: int = 2, *,
+                 device: DeviceLike = None) -> None:
+        if shardings is not None and not isinstance(shardings, dict):
+            raise TypeError(f"shardings must map input names to "
+                            f"NamedSharding, got {shardings!r}; pass a "
+                            f"device as device=")
         self.dataset = dataset
+        self.shardings = shardings
         self.device = resolve_device(device)
         self.step = start_step
         self.prefetch = prefetch

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -76,6 +76,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return out
+
+
+def refuse_xla(backend: Optional[str], plain: str) -> None:
+    """A wrapper given a tensor off the CPU launches its kernel or raises:
+    the reference's ``backend="xla"`` (its plain path) raises there and
+    names the plain function to call instead."""
+    if backend == "xla":
+        raise ValueError(f'backend="xla" takes the plain version on CPU '
+                         f"tensors only; call {plain} for it on this "
+                         f"device")
 
 
 def load(name: str) -> ctypes.CDLL:

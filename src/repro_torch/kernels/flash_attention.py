@@ -82,19 +82,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    block_q: int = 256, block_k: int = 256,
+                    backend: Optional[str] = None) -> torch.Tensor:
     """q [B,Hq,Sq,Dk], k [B,Hkv,Sk,Dk], v [B,Hkv,Sk,Dv] -> [B,Hq,Sq,Dv].
 
     CUDA tensors (float32 or bfloat16, head dims up to 128, any strides
     with a contiguous innermost dim) go to the kernel on the current
     stream, whose output is the ``[B,Hq,Sq,Dv]`` view of a
     ``[B,Sq,Hq,Dv]``-contiguous tensor; CPU tensors go to
-    :func:`flash_attention_plain`.  Anything else raises."""
+    :func:`flash_attention_plain`.  ``backend`` is the reference's:
+    ``"xla"`` (its plain path) on a CUDA tensor raises, since a caller
+    that wants the plain version there calls :func:`flash_attention_plain`;
+    every other value takes the kernel.  ``block_q`` / ``block_k`` are
+    the TPU kernel's tile sizes, which the reference's plain path ignores
+    too: the CUDA kernel keeps its own tiles and masks a ragged tail.
+    Anything else raises."""
     global launches
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    build.refuse_xla(backend, "flash_attention_plain")
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
     if any(t.stride(3) != 1 and t.shape[3] > 1 for t in (q, k, v)):

@@ -13,6 +13,7 @@ launch; the plain version sums in PyTorch's order.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -48,17 +49,20 @@ def moe_gmm_plain(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ecd,edf->ecf", xb.float(), w.float()).to(xb.dtype)
 
 
-def moe_gmm(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def moe_gmm(xb: torch.Tensor, w: torch.Tensor, *,
+            backend: Optional[str] = None) -> torch.Tensor:
     """``xb [E, C, d] @ w [E, d, f] -> [E, C, f]``.
 
     Contiguous CUDA tensors of one dtype (float32 or bfloat16) go to the
     kernel on the current stream (which refuses E above 65535 and C, d, f
-    of 2^31 or more); CPU tensors go to :func:`moe_gmm_plain`.  Anything
-    else raises."""
+    of 2^31 or more); CPU tensors go to :func:`moe_gmm_plain`.  ``backend="xla"``
+    on a CUDA tensor raises (call :func:`moe_gmm_plain`); every other
+    value takes the kernel.  Anything else raises."""
     global launches
     _check(xb, w)
     if xb.device.type == "cpu":
         return moe_gmm_plain(xb, w)
+    build.refuse_xla(backend, "moe_gmm_plain")
     if xb.device.type != "cuda":
         raise ValueError(f"no grouped-matmul kernel for {xb.device}")
     if not (xb.is_contiguous() and w.is_contiguous()):

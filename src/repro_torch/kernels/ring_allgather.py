@@ -148,15 +148,18 @@ def launch(x: torch.Tensor, out: torch.Tensor, p: Plan) -> None:
     launches += 1
 
 
-def ring_all_gather(x: torch.Tensor) -> torch.Tensor:
+def ring_all_gather(x: torch.Tensor, *,
+                    backend: Optional[str] = None) -> torch.Tensor:
     """``x [n, 1, *r] -> [n, n, *r]``, ``out[r, i] = x[i, 0]``.
 
     A contiguous CUDA tensor goes to the kernel on the current stream; a
-    CPU tensor goes to :func:`ring_all_gather_plain`.  Anything else
-    raises."""
+    CPU tensor goes to :func:`ring_all_gather_plain`.  ``backend="xla"``
+    on a CUDA tensor raises (call :func:`ring_all_gather_plain`); every
+    other value takes the kernel.  Anything else raises."""
     _check(x)
     if x.device.type == "cpu":
         return ring_all_gather_plain(x)
+    build.refuse_xla(backend, "ring_all_gather_plain")
     if x.device.type != "cuda":
         raise ValueError(f"no ring all-gather kernel for {x.device}")
     if not x.is_contiguous():

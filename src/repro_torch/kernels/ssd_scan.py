@@ -24,7 +24,7 @@ to it.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,18 +125,25 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+             backend: Optional[str] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,H,P], dt [B,S,H], A [H], B/C [B,S,H,N] -> (y [B,S,H,P],
     h_final [B,H,N,P] f32).
 
     CUDA tensors (N and P up to 128, the last dim of x, B and C with
     stride 1, any other strides) go to the kernel on the current stream;
-    CPU tensors go to :func:`ssd_scan_plain`.  Anything else raises."""
+    CPU tensors go to :func:`ssd_scan_plain` with ``chunk`` rows per
+    chunk, as the reference's plain path takes it.  The kernel keeps
+    :data:`CHUNK` rows whatever ``chunk`` says, which changes only the
+    order of the f32 sums.  ``backend="xla"`` on a CUDA tensor raises
+    (call :func:`ssd_scan_plain`); every other value takes the kernel.
+    Anything else raises."""
     global launches
     _check(x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, Bm, Cm)
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    build.refuse_xla(backend, "ssd_scan_plain")
     if x.device.type != "cuda":
         raise ValueError(f"no SSD-scan kernel for {x.device}")
     b, s, h, p = x.shape

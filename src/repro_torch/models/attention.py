@@ -5,7 +5,10 @@ full-sequence path (:func:`attn_apply`) takes the ``kernel_fn`` hook
 first (the flash kernel of :func:`repro_torch.kernels.model_kernels`;
 training passes none, as the reference's does); without one it runs
 ``attention_full`` for ``s <= q_block`` and otherwise the chunked
-online-softmax path.  Decode (:func:`attn_decode`) stays
+online-softmax path (``impl="chunked"``, the default, or
+``"chunked_causal_skip"``: the lower-triangular schedule that never
+computes a block above the diagonal, :func:`_flash_causal_skip`).
+Decode (:func:`attn_decode`) stays
 plain PyTorch, as the reference computes it outside any kernel, and
 takes one cache length per sequence so that slots at different fill
 levels share one batch.  Under a mesh whose rules shard the cache's
@@ -230,7 +233,8 @@ class _Flash(torch.autograd.Function):
 
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: float, causal: bool, window: Optional[int],
-                      q_block: int, k_block: int) -> torch.Tensor:
+                      q_block: int, k_block: int,
+                      causal_skip: bool = False) -> torch.Tensor:
     """Model layout.  q [B,S,Hq,Dk], k/v [B,S,Hkv,D*] (positions are
     arange(S)) -> [B,S,Hq,Dv].
 
@@ -238,7 +242,11 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     are single rows: one step of its compiled scan each, but here one
     Python step of ~20 launches each.  The port keeps blocks of
     min(S, block) rows instead, pads S to a multiple of them and masks
-    the padded keys: the same function, summed over other blocks."""
+    the padded keys: the same function, summed over other blocks.
+
+    ``causal_skip`` (with ``causal`` and no ``window``, as in the
+    reference) takes :func:`_flash_causal_skip`, the lower-triangular
+    schedule, in place of :class:`_Flash`."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -251,10 +259,59 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(b, sp, hkv, g, d).permute(0, 2, 3, 1, 4)
     kg = k.transpose(1, 2)
     vg = v.transpose(1, 2)
-    out = _Flash.apply(qg, kg, vg, scale, causal, window, bq, bk,
-                       s if sp > s else None)
+    if causal_skip and causal and window is None:
+        out = _flash_causal_skip(qg, kg, vg, scale, bq, bk)
+    else:
+        out = _Flash.apply(qg, kg, vg, scale, causal, window, bq, bk,
+                           s if sp > s else None)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sp, hq, v.shape[-1])
     return out[:, :s]
+
+
+def _flash_causal_skip(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, bq: int, bk: int) -> torch.Tensor:
+    """The reference's unrolled lower-triangular schedule: q block ``qi``
+    meets key blocks ``0 .. min(qi, nk - 1)`` and no block above the
+    diagonal is computed.  Grouped layout q [B,Hkv,G,S,Dk], k/v
+    [B,Hkv,S,D*] -> [B,Hkv,G,S,Dv].  Its gradient comes through plain
+    autograd, as the reference's comes through plain autodiff (it is not
+    :class:`_Flash`): the residuals are every visited block's, a
+    triangle of them.
+
+    The loop bound is the reference's, ``range(min(qi + 1, nk))``, which
+    covers the causal keys only when ``bq == bk`` (what ``attn_apply``
+    and ``mla_apply`` pass); with ``bk < bq`` it would drop keys below
+    the diagonal.  It is followed as it is.  A padded tail needs no key
+    mask here: a padded key lies after every real query, so the causal
+    mask already hides it, and the padded query rows are cut off."""
+    b, hkv, g, sq, dk = q.shape
+    sk, dv = k.shape[2], v.shape[-1]
+    nq, nk = sq // bq, sk // bk
+    dev, f = q.device, _acc(q)
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, :, :, qi * bq:(qi + 1) * bq].to(f)
+        q_pos = qi * bq + torch.arange(bq, device=dev)
+        acc = torch.zeros((b, hkv, g, bq, dv), dtype=f, device=dev)
+        m = torch.full((b, hkv, g, bq), NEG_INF, dtype=f, device=dev)
+        l = torch.zeros((b, hkv, g, bq), dtype=f, device=dev)
+        for kj in range(min(qi + 1, nk)):
+            kblk = k[:, :, kj * bk:(kj + 1) * bk]
+            vblk = v[:, :, kj * bk:(kj + 1) * bk]
+            k_pos = kj * bk + torch.arange(bk, device=dev)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kblk.to(f)) * scale
+            s = s + _mask_bias(q_pos, k_pos, True, None)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).to(f),
+                              vblk.to(f)).to(v.dtype)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None])
+                    .to(v.dtype))
+    return torch.cat(outs, dim=3)
 
 
 def _tp_size() -> int:
@@ -327,7 +384,8 @@ def attn_apply(cfg: Any, p: PyTree, x: torch.Tensor, *,
     else:
         out = attention_chunked(q, k, v, scale=scale, causal=cfg.causal,
                                 window=cfg.sliding_window,
-                                q_block=cfg.q_block, k_block=cfg.q_block)
+                                q_block=cfg.q_block, k_block=cfg.q_block,
+                                causal_skip=(impl == "chunked_causal_skip"))
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.head_dim))
     return y, k, v
 
@@ -414,12 +472,13 @@ def _flash_decode_combine(acc: torch.Tensor, m: torch.Tensor,
                           l: torch.Tensor) -> torch.Tensor:
     """Flash-decoding softmax combine across the sequence shards: the
     rank-stacked partials acc ``[n, ..., dv]``, m / l ``[n, ...]`` (the
-    reference's pmax / psum over the bound axis)."""
+    reference's pmax / psum over the bound axis, whose result every rank
+    of it holds)."""
     m_g = m.amax(0)
     corr = torch.exp(m - m_g)
     l_g = (l * corr).sum(0)
     acc_g = (acc * corr[..., None]).sum(0)
-    return acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+    return ranks.replicated(acc_g / torch.clamp(l_g, min=1e-30)[..., None])
 
 
 def attn_decode_sharded(cfg: Any, q: torch.Tensor, k_new: torch.Tensor,

@@ -123,7 +123,8 @@ def mla_apply(cfg: Any, p: PyTree, x: torch.Tensor, *,
     else:
         out = attention_chunked(q, k, v, scale=scale, causal=cfg.causal,
                                 window=None, q_block=cfg.q_block,
-                                k_block=cfg.q_block)
+                                k_block=cfg.q_block,
+                                causal_skip=(impl == "chunked_causal_skip"))
     return dense(p["wo"], out.reshape(b, s, H * cfg.v_head_dim))
 
 

@@ -34,6 +34,8 @@ depend on the order of atomic adds.
 """
 from __future__ import annotations
 
+import contextlib
+
 import math
 from typing import Any, Callable, Optional, Tuple
 
@@ -302,14 +304,19 @@ def _moe_ep(cfg: Any, p: PyTree, x: torch.Tensor, mesh: Any,
     ep_ax = ep_axis_name()
     ep = mesh.shape[ep_ax]
     b, s, d = x.shape
-    dp = 1
+    dp, dp_names = 1, []
     for a in dp_axes(mesh):
         if b % (dp * mesh.shape[a]):
             break
         dp *= mesh.shape[a]
+        dp_names.append(a)
     bl = b // dp
     backend = cfg_a2a_backend(cfg)
-    with ranks.bind_axis(ep_ax, ep):
+    with contextlib.ExitStack() as region:
+        # the groups are ranks of the reference's region along dp_names
+        for a in dp_names:
+            region.enter_context(ranks.bind_axis(a, mesh.shape[a]))
+        region.enter_context(ranks.bind_axis(ep_ax, ep))
         if s % ep == 0:
             xs = x.reshape(dp, bl, ep, s // ep, d).transpose(1, 2) \
                 .reshape(dp, ep, bl * (s // ep), d)

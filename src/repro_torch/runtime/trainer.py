@@ -39,6 +39,12 @@ from .fault import (FailureInjector, NodeFailure, StragglerMonitor,
 
 @dataclasses.dataclass
 class TrainConfig:
+    """The reference's fields.  ``donate`` is the reference's choice to
+    donate the params and the optimizer state to the :class:`Trainer`'s
+    step (``donate_argnums=(0, 1)``): with ``True`` the step updates the
+    tensors it is given in place; with ``False`` it updates copies, so
+    the tensors it was given stay as they were (one more copy of the
+    params and the moments live during a step)."""
     lr: float = 3e-4
     warmup: int = 100
     total_steps: int = 1000
@@ -55,6 +61,7 @@ class TrainConfig:
     global_batch: int = 8
     straggler_threshold: float = 2.0
     straggler_patience: int = 3
+    donate: bool = True
 
 
 def make_train_step(cfg: Any, tcfg: TrainConfig,
@@ -159,12 +166,26 @@ class Trainer:
         self._set_shardings()
         self.opt = adamw_init(self.params, cfg.opt_dtype)
         self.lr_fn = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.total_steps)
-        self._step_fn = make_train_step(cfg, tcfg, self.lr_fn, self.kernels)
+        self._step_fn = self._compile_step()
         self.dataset = SyntheticLMDataset(
             cfg.vocab, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed,
             frontend_len=cfg.frontend_len, frontend_dim=cfg.d_model,
             family=cfg.family)
         self.loader = self._make_loader(start_step=0)
+
+    def _compile_step(self) -> Callable[..., Any]:
+        step = make_train_step(self.cfg, self.tcfg, self.lr_fn,
+                               self.kernels)
+        if self.tcfg.donate:
+            return step
+
+        def undonated(params: PyTree, opt: AdamWState,
+                      batch: Dict[str, torch.Tensor]):
+            copy = lambda tree: tree_map(  # noqa: E731
+                lambda t: t.detach().clone(), tree)
+            return step(copy(params), AdamWState(
+                step=opt.step, m=copy(opt.m), v=copy(opt.v)), batch)
+        return undonated
 
     def _set_shardings(self) -> None:
         """The params' and the optimizer state's sharding trees on the
@@ -195,7 +216,8 @@ class Trainer:
         there (its batch specs are layouts over ranks on this card)."""
         if self.mesh is None:
             return None
-        return DataLoader(self.dataset, self.device, start_step=start_step)
+        return DataLoader(self.dataset, self.batch_sharding(),
+                          start_step=start_step, device=self.device)
 
     def _host_batch(self, step: int) -> Dict[str, torch.Tensor]:
         return to_device(self.dataset.batch(step), self.device)
@@ -218,7 +240,13 @@ class Trainer:
         if latest_step(self.tcfg.ckpt_dir) is None:
             return False
         target = {"params": self.params, "opt": self.opt}
-        state, step, extra = restore_checkpoint(self.tcfg.ckpt_dir, target)
+        shardings = None
+        if self.param_sharding is not None:
+            shardings = {"params": self.param_sharding,
+                         "opt": self.opt_sharding}
+        state, step, extra = restore_checkpoint(
+            self.tcfg.ckpt_dir, target, shardings=shardings,
+            device=self.device)
         self.params, self.opt = state["params"], state["opt"]
         self.step_count = extra.get("step_count", step)
         if self.loader is not None:
@@ -238,8 +266,7 @@ class Trainer:
         if new_mesh is not None:
             self.params = elastic_reshard(self.params, self.param_sharding)
             self.opt = elastic_reshard(self.opt, self.opt_sharding)
-        self._step_fn = make_train_step(self.cfg, self.tcfg, self.lr_fn,
-                                        self.kernels)
+        self._step_fn = self._compile_step()
         if self.loader is not None:
             self.loader.close()
         self.loader = self._make_loader(start_step=self.step_count)

@@ -56,7 +56,7 @@ def test_loader_order_from_start_step():
     the dataset's for that step as tensors on the device; ``close`` stops
     its thread."""
     ds = SyntheticLMDataset(vocab=50, seq_len=8, global_batch=2, seed=1)
-    loader = DataLoader(ds, "cpu", start_step=4, prefetch=2)
+    loader = DataLoader(ds, start_step=4, prefetch=2, device="cpu")
     try:
         for want_step in (4, 5, 6):
             step, batch = next(loader)

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port's entry
-points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, and the port's entry points run on the card unless the caller
+asks for the CPU (the dry run, which only counts on ``meta``, needs no
+card)."""
 import ast
 import os
 import subprocess
@@ -18,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _modules():
@@ -184,3 +187,54 @@ def test_train_entry_points_without_device_raise(no_cuda):
                         "--arch", "qwen2-0.5b", "--smoke", "--steps", "1"],
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_new_modules_are_held_to_the_rule():
+    """The dry run's modules and the example scripts are among the files
+    the import rule checks."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"src/repro_torch/analysis/hlo_walk.py",
+            "src/repro_torch/launch/dryrun.py",
+            "examples/torch_quickstart.py", "examples/torch_serve_lm.py",
+            "examples/torch_train_lm.py",
+            "examples/torch_multipod_dryrun.py"} <= names
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "repro_torch.launch.dryrun", "--arch", "qwen2-0.5b", "--shape",
+     "decode_32k", "--override", "n_layers=2"],
+    [str(ROOT / "examples" / "torch_multipod_dryrun.py"), "qwen2-0.5b",
+     "decode_32k", "n_layers=2"]], ids=["dryrun", "multipod_example"])
+def test_dryrun_needs_no_cuda(argv):
+    """The dry run counts on ``meta``: with no card visible and no
+    ``--device`` it runs to its end and loads no JAX."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    code = ("import runpy, sys; sys.argv = sys.argv[1:]; "
+            "m = sys.argv[1] if sys.argv[0] == '-m' else None; "
+            "sys.argv = sys.argv[1:] if m else sys.argv; "
+            "runpy.run_module(m, run_name='__main__') if m else "
+            "runpy.run_path(sys.argv[0], run_name='__main__')")
+    code += ("\nbad = [k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')]\nassert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code, *argv], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "decode_32k" in r.stdout
+
+
+def test_new_entry_points_without_device_raise(no_cuda):
+    """The bundles' steps and the walker run wherever their tensors are,
+    but the entry points that place tensors default to the card:
+    ``DataLoader`` with shardings, ``restore_checkpoint`` with
+    shardings."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data import DataLoader, SyntheticLMDataset
+    from repro_torch.parallel import Mesh, NamedSharding, PartitionSpec
+    sh = NamedSharding(Mesh((2,), ("data",)), PartitionSpec("data"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataLoader(SyntheticLMDataset(vocab=8, seq_len=4, global_batch=2),
+                   {"tokens": sh, "labels": sh})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_checkpoint("/nonexistent", {"a": torch.zeros(2)},
+                           shardings={"a": sh})
