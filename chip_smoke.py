@@ -85,10 +85,21 @@ non-zero:
    step 5, which must recover to step 8 with the uninterrupted run's
    losses; one step each with ``grad_accum=2`` (f32 and int8
    accumulators); mamba2-130m for 4 steps; qwen3-moe-30b-a3b at full
-   width cut to 4 of 48 layers for 4 steps; and the attention's custom
-   backward against autograd through ``attention_full`` in f32 at qwen2's
-   head shape.  Each step prints its host ms, tokens/s and model flop/s,
-   each run its peak memory, one profiled step its busy share.
+   width cut to 4 of 48 layers for 4 steps; the paths whose training
+   state a card holds only cut (``TRAIN_CUTS``), at full width for 4
+   steps each: hubert-xlarge whole (non-causal, on frames),
+   llava-next-mistral-7b (576 patch rows ahead of each row's 1024 tokens,
+   cut from the logits) at the depth two probe runs at 2 and 4 layers
+   pick from the slope of their peak memory, and DeepSeek-V3 with its MTP
+   loss at its 3 dense layers and one MoE layer with 32 of 256 routed
+   experts (16 if 32 run out of memory); each of these paths at smoke
+   widths in f32, one step on the card against the same step on the CPU;
+   and the attention's custom backward against autograd through
+   ``attention_full`` in f32 at qwen2's head shape.  Each step prints its
+   loss and its parts, host ms, tokens/s and model flop/s, each run its
+   peak memory, one profiled step its busy share, and each short run its
+   step's one-card bound counted on ``meta`` (below the measured median
+   step, or the run fails).
 
 16. the mesh paths, every rank on this card (the port's rank-stacked
    mesh; each phase counts the calls of its mesh branch, so a silent
@@ -251,6 +262,38 @@ LLAVA_PROMPT, LLAVA_NEW, HUBERT_FRAMES, FRONTEND_CHECK_LAYERS = 64, 16, 1024, 4
 # qwen3-moe-30b-a3b (cut to 4 layers) for 4 steps
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SHORT_STEPS = 1024, 8, 8, 4
 TRAIN_FAIL_AT, TRAIN_CKPT_EVERY, MOE_TRAIN_LAYERS = 5, 2, 4
+# the training paths at full width that a card holds only cut, each cut
+# applied to the published config, in the order tried.  hubert-xlarge
+# whole.  llava-next-mistral-7b at the depth its two probe runs pick (the
+# largest that leaves TRAIN_FREE_BYTES of TRAIN_CARD_BYTES free, its peak
+# extrapolated along the probes' slope), at most the depth listed here.
+# DeepSeek-V3: its 3 dense layers and one MoE layer, one whole period
+# (scan_plan refuses n_layers == first_k_dense), with 32 routed experts, or
+# 16 where 32 run out of memory: neither package has an expert layer that
+# holds a share of the experts and routes over all of them, so the expert
+# count itself is cut.  tests/test_torch_train_cuts.py holds every cut to
+# the reference's scan_plan and to less than TRAIN_STATE_CAP bytes of
+# params, grads and two moments counted on ``meta``, with no card.
+TRAIN_CUTS = {
+    "hubert-xlarge": ({},),
+    "llava-next-mistral-7b": (dict(n_layers=20),),
+    "deepseek-v3-671b": (dict(n_layers=4, first_k_dense=3, n_experts=32),
+                         dict(n_layers=4, first_k_dense=3, n_experts=16)),
+}
+TRAIN_STATE_CAP = 60e9
+LLAVA_PROBE_LAYERS = (2, 4)
+TRAIN_CARD_BYTES, TRAIN_FREE_BYTES = 80e9, 10e9
+# the same paths at smoke widths, cut as their CPU twins are
+# (tests/test_torch_train_cuts.py), in f32: one train step on the card
+# against the port's own step on the CPU, for the same params and batch.
+# The loss, its parts and the grad norm are the same f32 sums in other
+# orders: within 1e-5 relative, the twins' bound against the reference
+TRAIN_SMOKE_CUTS = {
+    "hubert-xlarge": {},
+    "llava-next-mistral-7b": dict(n_layers=1),
+    "deepseek-v3-671b": dict(n_layers=4, first_k_dense=3, n_experts=4),
+}
+TRAIN_F32_SEQ, TRAIN_F32_BATCH, TRAIN_F32_RTOL = 20, 2, 1e-5
 # the reference's training driver's default learning rate (at 1e-3 the
 # loss of qwen3-moe-30b-a3b's 4-layer cut rose from 11.1 to 19.7 at step
 # 4, measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W)
@@ -1099,7 +1142,7 @@ def _profiled(label, fn, n_kernels=6, cpu=True):
         return
     log(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
-        f"{launches} kernel launches")
+        f"{launches} kernel launches; card {smi()}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[
             :n_kernels]:
         t = e.self_device_time_total / 1e3
@@ -2193,19 +2236,21 @@ def _train(label, cfg, tcfg, steps, injector=None):
     res = tr.run(steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    card = smi()
     for m in tr.metrics_log:
         share = 100 * m["model_flops_per_s"] / PEAK_FLOPS["bfloat16"]
+        mtp = f" mtp {m['mtp']:.6f}" if "mtp" in m else ""
         log(f"train {label}: step {m['step']} loss {m['loss']:.6f} xent "
-            f"{m['xent']:.6f} aux {m['aux']:.6f} grad_norm "
+            f"{m['xent']:.6f} aux {m['aux']:.6f}{mtp} grad_norm "
             f"{m['grad_norm']:.6f} lr {m['lr']:.3e}; host "
             f"{m['dt'] * 1e3:.3f} ms, {m['tokens_per_s']:.1f} tokens/s, "
             f"model {m['model_flops_per_s']:.4e} flop/s = {share:.2f}% of "
-            f"the bf16 dense peak")
+            f"the bf16 dense peak; card {card}")
     log(f"train {label}: final step {res['final_step']}, "
         f"{res['failures']} failures, {len(res['straggler_events'])} "
         f"straggler events, wall {wall:.3f} s (init excluded), "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
-        f"card {smi()}")
+        f"card {card}")
     require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 for m in tr.metrics_log), f"{label}: a loss is not finite")
     return tr, res
@@ -2218,6 +2263,9 @@ def _train_cfg(arch, steps, **overrides):
     cfg = dataclasses.replace(full, **overrides)
     depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers
              else f"cut to {cfg.n_layers} of {full.n_layers} layers")
+    if cfg.n_experts != full.n_experts:
+        depth += (f", routed experts cut to {cfg.n_experts} of "
+                  f"{full.n_experts} (top-{cfg.n_experts_per_tok})")
     tcfg = TrainConfig(lr=TRAIN_LR, warmup=2, total_steps=steps,
                        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                        log_every=1)
@@ -2324,22 +2372,223 @@ def phase_train_qwen():
     return step_ms
 
 
+def train_state_bytes(cfg) -> tuple:
+    """(params, bytes of the params, their grads and AdamW's two moments in
+    ``cfg.opt_dtype``) of ``cfg``, counted on ``meta``: nothing allocated."""
+    from repro_torch.models import abstract_init
+    from repro_torch.models.common import tree_leaves
+    leaves = list(tree_leaves(abstract_init(cfg)[0]))
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    return n, 2 * nbytes + 2 * n * cfg.opt_dtype.itemsize
+
+
+def depth_from_probes(peaks, cap) -> tuple:
+    """(bytes a layer, the depth that fits, the depth taken) from the peak
+    memory of runs at two depths (``{layers: bytes}``): the slope between
+    them, the largest depth whose peak, extrapolated along it, leaves
+    ``TRAIN_FREE_BYTES`` of ``TRAIN_CARD_BYTES`` free, and that depth at
+    most ``cap``."""
+    (lo, p_lo), (hi, p_hi) = sorted(peaks.items())
+    slope = (p_hi - p_lo) / (hi - lo)
+    fit = lo + int((TRAIN_CARD_BYTES - TRAIN_FREE_BYTES - p_lo) // slope)
+    return slope, fit, min(fit, cap)
+
+
+def _one_card_bound(cfg, step_ms):
+    """The train step of ``cfg`` at the train phase's shape on one card (no
+    mesh), counted on ``meta`` as the dry run counts a cell: its compute
+    and memory terms on the H100's constants.  The larger must lie below
+    ``step_ms``, the step measured on the card, or the counting is
+    wrong."""
+    from repro_torch.analysis.roofline import analyze_compiled, count_step
+    from repro_torch.launch.steps import build_train_bundle
+    from repro_torch.models import abstract_init
+    from repro_torch.runtime import TrainConfig
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup=2, total_steps=TRAIN_STEPS,
+                       seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    bundle = build_train_bundle(cfg, None, TRAIN_SEQ, TRAIN_BATCH,
+                                tcfg=tcfg)
+    counted = count_step(bundle, t_build_s=time.perf_counter() - t0)
+    report = analyze_compiled(
+        counted, arch=cfg.name, shape=f"{TRAIN_SEQ}x{TRAIN_BATCH}",
+        mesh_name="1 card", chips=1, cfg=cfg,
+        params_proto=abstract_init(cfg)[0], kind="train",
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    bound_ms = max(report.compute_s, report.memory_s) * 1e3
+    log(f"{report.summary()}; card {smi()}")
+    log(f"dryrun one-card {cfg.name} train step ({cfg.n_layers} layers, "
+        f"seq {TRAIN_SEQ} x batch {TRAIN_BATCH}): counted "
+        f"{report.hlo_flops:.6e} flop (compute "
+        f"{report.compute_s * 1e3:.3f} ms), {report.hlo_bytes:.6e} B "
+        f"(memory {report.memory_s * 1e3:.3f} ms), {counted.totals.n_ops} "
+        f"ops in {time.perf_counter() - t0:.1f} s; bound {bound_ms:.3f} ms "
+        f"against the measured step {step_ms:.3f} ms "
+        f"({100 * bound_ms / step_ms:.1f}%); useful_ratio "
+        f"{report.useful_ratio:.4f} (6 N_active D / counted flops); card "
+        f"{smi()}")
+    require(bound_ms < step_ms,
+            f"the counted bound {bound_ms:.3f} ms is above the measured "
+            f"step {step_ms:.3f} ms: the counting is wrong")
+
+
 def phase_train_short(arch, cut=None, **overrides):
     """``TRAIN_SHORT_STEPS`` steps of ``arch`` at full width (``overrides``
-    cut its depth, ``cut`` says why), one of them profiled."""
+    cut it, ``cut`` says why), one of them profiled; the time the host takes
+    to draw a batch's frontend embeddings; the step's one-card bound
+    counted on ``meta``.  Fails on a loss or grad norm that is not finite,
+    an MoE without an aux loss, an MTP loss that is not finite and
+    positive, or a bound above the median step."""
+    import torch
+    from repro_torch.data import to_device
     cfg, tcfg = _train_cfg(arch, TRAIN_SHORT_STEPS, **overrides)
-    if cut:
-        log(f"train: {cfg.name} cut: {cut}")
+    n, state = train_state_bytes(cfg)
+    log(f"train: {cfg.name} " + (f"cut: {cut}; " if cut else "")
+        + f"{n} params; params + grads + two moments {state} bytes "
+        f"(counted on meta); card {smi()}")
     tr, res = _train(cfg.name, cfg, tcfg, TRAIN_SHORT_STEPS)
     require(res["final_step"] == TRAIN_SHORT_STEPS, f"{res}")
     if cfg.n_experts:
         require(all(m["aux"] > 0 for m in tr.metrics_log),
                 "the MoE aux loss is not in the metrics")
-    nxt = tr._host_batch(tr.step_count)
+    if cfg.mtp_depth:
+        require(all(math.isfinite(m["mtp"]) and m["mtp"] > 0
+                    for m in tr.metrics_log),
+                "the MTP loss is not finite and positive")
+    steady = sorted(m["dt"] * 1e3 for m in tr.metrics_log[1:])
+    step_ms = steady[len(steady) // 2]
+    # Trainer.run draws each batch on the host before its step's timer
+    t0 = time.perf_counter()
+    host = tr.dataset.batch(tr.step_count)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    nxt = to_device(host, tr.device)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - t0) * 1e3
+    if "frontend" in host:
+        log(f"train {cfg.name}: the host draws a batch, "
+            f"{host['frontend'].nbytes} bytes of f32 frontend embeddings "
+            f"{list(host['frontend'].shape)} with numpy row by row, in "
+            f"{draw_ms:.3f} ms, and moves it to the card in {move_ms:.3f} "
+            f"ms, outside the step's timer; card {smi()}")
     _profiled(f"{cfg.name} train step (seq {TRAIN_SEQ} x batch "
               f"{TRAIN_BATCH})", lambda: tr._step_fn(tr.params, tr.opt, nxt))
     del tr, nxt
     release()
+    _one_card_bound(cfg, step_ms)
+
+
+def phase_train_llava():
+    """llava-next-mistral-7b at the depth its probes pick: one step each at
+    ``LLAVA_PROBE_LAYERS`` layers, the slope of the peak memory between
+    them, and the largest depth that leaves ``TRAIN_FREE_BYTES`` free (at
+    most the depth in ``TRAIN_CUTS``); then its run."""
+    import torch
+    from repro_torch.configs.base import get_config
+    arch = "llava-next-mistral-7b"
+    full = get_config(arch)
+    cap = TRAIN_CUTS[arch][0]["n_layers"]
+    peaks = {}
+    for layers in LLAVA_PROBE_LAYERS:
+        cfg, tcfg = _train_cfg(arch, 1, n_layers=layers)
+        tr, _ = _train(f"{arch} probe at {layers} layers", cfg, tcfg, 1)
+        peaks[layers] = torch.cuda.max_memory_allocated()
+        del tr
+        release()
+    slope, fit, depth = depth_from_probes(peaks, cap)
+    log(f"train: {arch} probes: max_memory_allocated {peaks} bytes by "
+        f"layers, slope {slope:.0f} bytes a layer; the largest depth that "
+        f"leaves {TRAIN_FREE_BYTES:.0f} of {TRAIN_CARD_BYTES:.0f} bytes "
+        f"free is {fit}, at most {cap}: {depth} layers; card {smi()}")
+    require(depth >= max(LLAVA_PROBE_LAYERS),
+            f"{arch}: the probes leave no depth above theirs")
+    phase_train_short(
+        arch, cut=f"{depth} of {full.n_layers} layers, the depth its probes "
+        f"picked: the whole model's training state, "
+        f"{train_state_bytes(full)[1]} bytes, does not fit one card",
+        n_layers=depth)
+    log(f"train {arch}: each row is {full.frontend_len} patch rows and "
+        f"{TRAIN_SEQ} tokens; the model flops above count the tokens "
+        f"(6 N_active x seq x batch, as the reference's model_flops), so "
+        f"their share undercounts the step's work by "
+        f"{full.frontend_len + TRAIN_SEQ}/{TRAIN_SEQ}")
+
+
+def phase_train_deepseek():
+    """DeepSeek-V3 with its MTP loss, at the first cut of ``TRAIN_CUTS``
+    that does not run out of memory."""
+    import torch
+    from repro_torch.configs.base import get_config
+    arch = "deepseek-v3-671b"
+    full = get_config(arch)
+    cuts = TRAIN_CUTS[arch]
+    for i, over in enumerate(cuts):
+        wide = {e: train_state_bytes(dataclasses.replace(
+                    full, **dict(over, n_experts=e)))[1]
+                for e in (full.n_experts, 64)}
+        why = (f"its {over['first_k_dense']} dense layers and "
+               f"{over['n_layers'] - over['first_k_dense']} MoE layer (one "
+               f"whole period) and the MTP layer; the router is "
+               f"{over['n_experts']} wide, not {full.n_experts}: at "
+               f"{full.n_experts} experts this cut's training state is "
+               f"{wide[full.n_experts]} bytes and at 64 {wide[64]} bytes "
+               f"before activations, and neither package has an expert "
+               f"layer that holds a share of the experts and routes over "
+               f"all of them, so the expert count itself is cut; top-"
+               f"{full.n_experts_per_tok}, moe_d_ff {full.moe_d_ff}, "
+               f"{full.n_shared_experts} shared expert, the "
+               f"{full.router_type} router with norm-top-k, capacity "
+               f"factor {full.capacity_factor}, MLA's widths, MTP depth "
+               f"{full.mtp_depth} (coefficient {full.mtp_loss_coef}) and "
+               f"{str(full.opt_dtype)[6:]} moments as published")
+        try:
+            return phase_train_short(arch, cut=why, **over)
+        except torch.cuda.OutOfMemoryError as e:
+            if i + 1 == len(cuts):
+                raise
+            err = str(e).splitlines()[0]
+        release()
+        log(f"train: {arch} at {over['n_experts']} experts ran out of "
+            f"memory ({err}); taking {cuts[i + 1]['n_experts']}")
+
+
+def phase_train_f32_cuts():
+    """Each path of ``TRAIN_SMOKE_CUTS`` in f32: one train step on the card
+    against the port's own step on the CPU, the same params and batch;
+    the loss, its parts and the grad norm within ``TRAIN_F32_RTOL``."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.models import init_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.runtime import TrainConfig, make_train_step
+    for arch, over in TRAIN_SMOKE_CUTS.items():
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        tcfg = TrainConfig(lr=TRAIN_LR, warmup=2,
+                           total_steps=TRAIN_SHORT_STEPS,
+                           seq_len=TRAIN_F32_SEQ,
+                           global_batch=TRAIN_F32_BATCH)
+        batch = make_batch(cfg, TRAIN_F32_SEQ, TRAIN_F32_BATCH, seed=0)
+        params = init_model(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+        got = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.detach().to(dev, copy=True), params)
+            step = make_train_step(cfg, tcfg, cosine_schedule(
+                tcfg.lr, tcfg.warmup, tcfg.total_steps))
+            _, _, m = step(p, adamw_init(p, cfg.opt_dtype),
+                           to_device(batch, torch.device(dev)))
+            got[dev] = {k: float(v) for k, v in m.items() if k != "lr"}
+        errs = {k: abs(got["cuda"][k] - v) / abs(v) if v else
+                abs(got["cuda"][k]) for k, v in got["cpu"].items()}
+        log(f"train f32 check: {cfg.name} {over}, seq {TRAIN_F32_SEQ} x "
+            f"batch {TRAIN_F32_BATCH}, one step on the card against the "
+            f"CPU: card {got['cuda']}, relative differences {errs} (bound "
+            f"{TRAIN_F32_RTOL})")
+        require(all(e <= TRAIN_F32_RTOL for e in errs.values()),
+                f"{cfg.name}: the card's f32 step differs from the CPU's")
 
 
 def phase_flash_backward():
@@ -2385,9 +2634,12 @@ def phase_train():
     step_ms = phase_train_qwen()
     phase_train_short("mamba2-130m")
     phase_train_short("qwen3-moe-30b-a3b",
-                      cut="4 of 48 layers (~3.1 G params: with bf16 grads "
-                      "and f32 moments ~37 GB; the whole model's state does "
-                      "not fit one card)", n_layers=MOE_TRAIN_LAYERS)
+                      cut="4 of 48 layers: the whole model's training state "
+                      "does not fit one card", n_layers=MOE_TRAIN_LAYERS)
+    phase_train_short("hubert-xlarge", **TRAIN_CUTS["hubert-xlarge"][0])
+    phase_train_llava()
+    phase_train_deepseek()
+    phase_train_f32_cuts()
     phase_flash_backward()
     counts = read_counts()
     log(f"train: kernel launches across every training phase {counts}")
@@ -2524,13 +2776,8 @@ def phase_dryrun(train_step_ms):
     mesh) counted the same way: its compute and memory terms on the
     H100's constants must lie below the step time the train phase
     measured, or the counting is wrong."""
-    import torch
-    from repro_torch.analysis.roofline import analyze_compiled, count_step
     from repro_torch.configs.base import get_config
     from repro_torch.launch.dryrun import run_cell
-    from repro_torch.launch.steps import build_train_bundle
-    from repro_torch.models import abstract_init
-    from repro_torch.runtime import TrainConfig
     arch, shape = DRYRUN_CELL
     t0 = time.perf_counter()
     rec = run_cell(arch, shape)
@@ -2541,32 +2788,7 @@ def phase_dryrun(train_step_ms):
         f"{rec['t_build_s']:.1f} s, counted meta run {rec['t_count_s']:.1f}"
         f" s, {rec['n_ops']} ops); per device {rec['hlo_flops']:.6e} flop, "
         f"{rec['hlo_bytes']:.6e} B, useful {rec['useful_ratio']:.4f}")
-    cfg = get_config("qwen2-0.5b")
-    tcfg = TrainConfig(lr=TRAIN_LR, warmup=2, total_steps=TRAIN_STEPS,
-                       seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    t0 = time.perf_counter()
-    bundle = build_train_bundle(cfg, None, TRAIN_SEQ, TRAIN_BATCH,
-                                tcfg=tcfg)
-    counted = count_step(bundle, t_build_s=time.perf_counter() - t0)
-    report = analyze_compiled(
-        counted, arch=cfg.name, shape=f"{TRAIN_SEQ}x{TRAIN_BATCH}",
-        mesh_name="1 card", chips=1, cfg=cfg,
-        params_proto=abstract_init(cfg)[0], kind="train",
-        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    bound_ms = max(report.compute_s, report.memory_s) * 1e3
-    log(report.summary())
-    log(f"dryrun one-card qwen2-0.5b train step (seq {TRAIN_SEQ} x batch "
-        f"{TRAIN_BATCH}): counted {report.hlo_flops:.6e} flop "
-        f"(compute {report.compute_s * 1e3:.3f} ms), "
-        f"{report.hlo_bytes:.6e} B (memory {report.memory_s * 1e3:.3f} ms), "
-        f"{counted.totals.n_ops} ops; bound {bound_ms:.3f} ms against the "
-        f"train phase's measured step {train_step_ms:.3f} ms "
-        f"({100 * bound_ms / train_step_ms:.1f}%); useful_ratio "
-        f"{report.useful_ratio:.4f} (6 N_active D / counted flops); card "
-        f"{smi()}")
-    require(bound_ms < train_step_ms,
-            f"the counted bound {bound_ms:.3f} ms is above the measured "
-            f"step {train_step_ms:.3f} ms: the counting is wrong")
+    _one_card_bound(get_config("qwen2-0.5b"), train_step_ms)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,16 @@
         --smoke --device cpu --steps 20 --seq-len 64 --batch 4
 
 Runs on the CUDA card by default; ``--device cpu`` runs on the CPU.
-``--smoke`` takes the arch's reduced config, else the published one
-(qwen2-0.5b and mamba2-130m train on one H100 at full width and depth).
+``--smoke`` takes the arch's reduced config, else the published one.
+On one 80 GB H100 at seq 1024 x batch 8, qwen2-0.5b, mamba2-130m and
+hubert-xlarge train at full width and depth.  The others fit only cut,
+and this driver takes no cut (the reference's has none): ``chip_smoke.py``
+trains them at full width with the cuts of its ``TRAIN_CUTS``:
+qwen3-moe-30b-a3b at 4 of 48 layers, llava-next-mistral-7b at the depth
+its memory probes pick (20 of 32 layers), and deepseek-v3-671b with its
+MTP loss at its 3 dense layers and one MoE layer, 32 of 256 routed
+experts.  Their CPU twins at smoke widths:
+``PYTHONPATH=src python -m pytest -q tests/test_torch_train_cuts.py``.
 The trainer wires checkpoint/restart, failure recovery and straggler
 monitoring (see ``repro_torch.runtime``).
 """

@@ -78,6 +78,39 @@ def test_adamw_steps_match_reference(moments):
     _close(_np(ts.v), js.v, rtol)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 12])
+def test_adamw_update_in_chunks_equals_whole_leaves(monkeypatch, chunk):
+    """The update passes over each leaf in blocks of rows of at most
+    ``UPDATE_CHUNK`` elements (one row where a row is larger: 1 and 7 split
+    ``w``'s rows of 5, 12 takes two rows a block, a 0-d leaf stays whole);
+    the arithmetic is elementwise, so four steps give the whole-leaf
+    update's params and moments bit for bit, and the reference's within
+    the bounds above."""
+    p0 = _tree(0)
+    runs = []
+    for size in (chunk, 1 << 30):
+        monkeypatch.setattr(topt.adamw, "UPDATE_CHUNK", size)
+        tp = _port_tree(p0)
+        ts = topt.adamw_init(tp, torch.bfloat16)
+        lr = topt.cosine_schedule(0.1, 2, 6)
+        for i in range(4):
+            tp, ts = topt.adamw_update(tp, _port_tree(_tree(10 + i)), ts,
+                                       lr=lr(ts.step), weight_decay=0.1)
+        runs.append([tp, ts.m, ts.v])
+    for got, want in zip(*runs):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(g, w)
+    jp = jax.tree.map(jnp.asarray, p0)
+    js = jopt.adamw_init(jp, jnp.bfloat16)
+    jlr = jopt.cosine_schedule(0.1, 2, 6)
+    for i in range(4):
+        jp, js = jopt.adamw_update(jp, jax.tree.map(jnp.asarray,
+                                                    _tree(10 + i)), js,
+                                   lr=jlr(js.step), weight_decay=0.1)
+    _close(_np(runs[0][0]), jp, 1e-2)
+    _close(_np(runs[0][1]), js.m, 2 * BF16)
+
+
 def test_adamw_bf16_params_stay_bf16():
     p = {"w": torch.ones(8, dtype=torch.bfloat16)}
     s = topt.adamw_init(p, torch.bfloat16)
