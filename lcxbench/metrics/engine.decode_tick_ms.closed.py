@@ -1,0 +1,7 @@
+"""``engine.decode_tick_ms`` in a closed-loop cell, where the decode ticks set
+the rate of output tokens."""
+from lcxbench.readers import reader
+
+
+def read(run):
+    return reader("engine.decode_tick_ms")(run)
