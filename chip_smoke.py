@@ -27,7 +27,12 @@ non-zero:
    per MoE layer and prefill or decode tick (decode runs the experts
    too), and no kernel of another path.  Then a prefill and four decode
    ticks run under ``torch.profiler``, which reports the device's busy
-   share and the kernels that take its time;
+   share and the kernels that take its time, and one prefill and one
+   decode tick run with the engine's dispatch spans under CUDA's sync
+   debug mode, which logs any call in them that waits for the card
+   (``sync check:`` lines).  Before the first, ``trace cost:`` times the
+   engine's tick on the host with its trace on and off, its dispatch
+   stubbed;
 5. greedy consistency: for each model at full width in float32
    (qwen3-moe-30b-a3b cut to 4 layers, capacity factor E/k so that
    nothing drops), the engine's greedy tokens equal token-by-token
@@ -1170,6 +1175,125 @@ def phase_profile(cfg, params, kernels, prompts):
               lambda: [eng.tick() for _ in range(4)])
 
 
+SYNC_MSG = "synchronizing CUDA operation"
+
+
+def _sync_free(label, fn):
+    """``fn()`` under CUDA's sync debug mode "error".  A synchronizing
+    call inside it (one that makes the host wait for the card) is logged
+    with the port's line that made it, and ``fn`` runs again under "warn"
+    to log every such line; nothing fails.  Returns ``fn()``."""
+    import traceback
+    import warnings
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+        log(f"sync check: {label}: no synchronizing call")
+        return out
+    except RuntimeError as e:
+        if SYNC_MSG not in str(e):
+            raise
+        first = [f"{Path(f.filename).name}:{f.lineno}"
+                 for f in traceback.extract_tb(e.__traceback__)
+                 if "repro_torch" in f.filename][-1:]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    every = sorted({f"{w.filename}:{w.lineno}" for w in seen
+                    if SYNC_MSG in str(w.message)})
+    log(f"sync check: {label}: synchronizing call at {first}; every one: "
+        f"{every}")
+    return out
+
+
+def phase_sync_check(cfg, params, kernels, prompt):
+    """One prefill and one decode tick of ``cfg`` with the engine's two
+    dispatch spans (``prefill.dispatch``: ``_dispatch_prefill``,
+    ``decode.dispatch``: ``_dispatch_decode``) run through
+    ``_sync_free``: a synchronizing call inside one would make the span
+    hold time spent waiting for the card."""
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, params, ServeConfig(
+        n_slots=2, max_seq=len(prompt) + 4, max_new_tokens=2),
+        kernels=kernels)
+    for name in ("_dispatch_prefill", "_dispatch_decode"):
+        fn = getattr(eng, name)
+        setattr(eng, name, lambda *a, _fn=fn, _n=name: _sync_free(
+            f"{cfg.name} {_n[1:]}", lambda: _fn(*a)))
+    eng.submit(Request(rid=0, prompt=prompt))
+    done = eng.run_until_drained()
+    require(len(done) == 1 and not eng.failed and len(done[0].output) == 2
+            and eng.stats["ticks"] == 1,
+            f"sync check: {[r.error for r in eng.failed]}, {eng.stats}")
+
+
+def trace_cost(ticks=500, rounds=20, n_slots=8):
+    """Host microseconds the engine's trace costs a served tick.  The
+    real ``ServingEngine.tick`` runs a two-layer model on the CPU with
+    its two dispatch methods stubbed to hand back fixed tokens, so that a
+    tick holds only the engine's own code: the executor, an admission,
+    a decode of ``n_slots - 1`` live slots, the bookkeeping and the
+    spans.  One request is submitted before each tick.  Engines with
+    the trace on and with ``trace=False`` take turns, ``rounds`` of
+    each, a new engine each round (the executor's retained graph grows
+    over a run).  Returns (enabled, disabled: the median of the rounds'
+    means, spans a tick)."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import init_model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    cfg = ModelConfig(name="trace-cost", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab=211,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    first = torch.ones(1, dtype=torch.int32)
+    step = torch.ones(n_slots, dtype=torch.int32)
+    prompt = np.arange(8, dtype=np.int32)
+    warm = n_slots
+
+    def run(trace):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            n_slots=n_slots, max_seq=64, max_new_tokens=n_slots),
+            device="cpu", trace=trace)
+        eng._dispatch_prefill = lambda prompt, slot: first
+        eng._dispatch_decode = lambda tokens, lengths: step
+        for k in range(warm + ticks):
+            if k == warm:
+                t, opened = time.perf_counter(), eng.trace.opened
+            eng.submit(Request(rid=k, prompt=prompt))
+            eng.tick()
+        require(not eng.failed and not eng.queue,
+                f"trace cost: {eng.stats}")
+        return ((time.perf_counter() - t) / ticks * 1e6,
+                (eng.trace.opened - opened) / ticks)
+
+    on, off = [], []
+    for _ in range(rounds):
+        on.append(run(True))
+        off.append(run(False)[0])
+    return (statistics.median(u for u, _ in on), statistics.median(off),
+            on[-1][1])
+
+
+def phase_trace_cost():
+    """The engine's trace cost a tick on this machine's host."""
+    on, off, spans = trace_cost()
+    log(f"trace cost: {on - off:.2f} us a tick of {spans:.0f} spans "
+        f"({on:.2f} us enabled, {off:.2f} us disabled: the engine's own "
+        f"code, dispatch stubbed, medians of 20 rounds of 500 ticks); card "
+        f"{smi()}")
+
+
 def expected_launches(cfg, prefills, ticks=0) -> dict:
     """Each kernel's launches in a run of ``prefills`` prefills (or
     full-sequence forwards: an encoder's ``apply_model`` is one) and
@@ -1311,6 +1435,7 @@ def phase_serve(arch, prompts, cut=None, then=None, **overrides):
             f"{cfg.n_experts_per_tok}); the grouped matmul reads all "
             f"{cfg.n_experts} experts' weights, {read} bytes a tick")
     phase_profile(cfg, params, kernels, prompts)
+    phase_sync_check(cfg, params, kernels, prompts[0])
     tokens, stats = {r.rid: list(r.output) for r in done}, eng.stats
     after = None
     if then is not None:
@@ -3428,6 +3553,7 @@ def serve_only(archs) -> int:
         return 2
     phase_device()
     phase_build()
+    phase_trace_cost()
     for arch in archs:
         phase_serve(arch, _prompts(get_config(arch).vocab),
                     **SERVE_CUTS.get(arch, {}))
@@ -3475,6 +3601,7 @@ def main() -> int:
         [capacity(ds_cfg, len(p)) for p in ds_prompts]
         + [capacity(ds_cfg, RES_BATCH)], ep_mesh_rows)
     mark("kernel checks")
+    phase_trace_cost()
     counts, qwen_tokens, _, _ = phase_serve("qwen2-0.5b", prompts)
     qwen_layers = get_config("qwen2-0.5b").n_layers
     flash_entries = [(flash_times[len(p)], qwen_layers) for p in prompts]

@@ -1,0 +1,7 @@
+"""``model.decode_dispatch_ms`` in a closed-loop cell, where the decode ticks
+set the rate of output tokens."""
+from lcxbench.readers import reader
+
+
+def read(run):
+    return reader("model.decode_dispatch_ms")(run)

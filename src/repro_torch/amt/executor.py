@@ -19,6 +19,18 @@ context.  A body that must wait for arrivals returns
 executor calls ``k`` with the event(s) once progress has signalled them,
 using ``k``'s return value as the task result.
 
+Tracing
+-------
+``Executor(trace=...)`` takes a :class:`repro_torch.trace.Trace` (off,
+``None``, by default: the serving engine passes its own).  With one,
+each ``run()`` is an ``amt.run`` span whose attributes count the tasks
+it ran (``tasks_run``), its ``progress_calls`` and the tasks the graph
+holds at its end (``graph_tasks``: the graph keeps every task ever
+spawned, and each ``run()`` walks them all), and each task body
+executed is an ``amt.task`` span under it (attribute ``task``: the
+task's name).  The executor's self time is ``amt.run`` less its
+``amt.task`` spans.
+
 Backpressure
 ------------
 Admission from the ready heap is gated on the depth of the pending
@@ -36,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import repro_torch.core as lcx
 
+from ..trace import Trace
 from .task import Task, TaskGraph, TaskState
 
 
@@ -168,8 +181,10 @@ class Executor:
                  fail_fast: bool = True,
                  max_task_retries: int = 0,
                  task_retry_backoff: int = 1,
-                 name: str = "amt") -> None:
+                 name: str = "amt",
+                 trace: Optional[Trace] = None) -> None:
         self.name = name
+        self.trace = trace
         # Graceful degradation: with fail_fast=False a task exception is
         # recorded in ``task_status`` and the task is retried with
         # exponential backoff up to ``max_task_retries`` times, then
@@ -289,6 +304,18 @@ class Executor:
         """Drain the graph: execute ready tasks, interleave progress,
         retire completions.  Raises on deadlock (blocked tasks that no
         amount of progress can unblock)."""
+        if self.trace is None:
+            return self._run(max_cycles)
+        ran, progressed = (self.stats["tasks_run"],
+                           self.stats["progress_calls"])
+        with self.trace.span("amt.run") as span:
+            stats = self._run(max_cycles)
+            span.set(tasks_run=stats["tasks_run"] - ran,
+                     progress_calls=stats["progress_calls"] - progressed,
+                     graph_tasks=len(self.graph))
+        return stats
+
+    def _run(self, max_cycles: int) -> Dict[str, int]:
         for t in self.graph.newly_ready():
             self._push(t)
         for _ in range(max_cycles):
@@ -362,7 +389,11 @@ class Executor:
         task.state = TaskState.RUNNING
         ctx = TaskContext(self, task)
         try:
-            out = task.fn(ctx)
+            if self.trace is None:
+                out = task.fn(ctx)
+            else:
+                with self.trace.span("amt.task", task=task.name):
+                    out = task.fn(ctx)
         except BaseException as e:
             if self.fail_fast or not isinstance(e, Exception):
                 self.graph.fail(task, e)

@@ -28,6 +28,29 @@ Besides ``stats`` (the reference's counters), ``timings`` keeps the
 host time of every prefill and decode tick in milliseconds; both end
 in a device-to-host copy of the sampled tokens, which waits for the
 device.
+
+``trace`` (:class:`repro_torch.trace.Trace`, on by default;
+``trace=False`` records nothing) holds a span of each layer boundary,
+nested in this order: ``engine.tick`` (one ``tick()``: the requests
+``queued`` at its start, the ``live`` slots at its end), the executor's
+``amt.run`` and ``amt.task`` spans (see
+:class:`~repro_torch.amt.Executor`), ``engine.admit`` (one admission:
+``rid``; its queue wait is the span's start less ``submitted_at``) and
+``engine.decode`` (one decode tick: ``live`` slots).  Inside an
+admission, ``prefill.dispatch`` (the prompt's host-to-device copy,
+``prefill`` and ``sample_token``, returning before the first token is
+copied back: ``prompt`` length) and ``prefill.sync`` (that copy: the
+host waiting for the card); inside a decode tick, ``decode.prepare``
+(the token array and the copies of tokens and lengths to the card),
+``decode.dispatch`` (``decode_step`` and ``sample_token``),
+``decode.sync`` (the copy of the sampled tokens back) and
+``decode.bookkeeping`` (the per-slot loop: requests ``finished``).  The
+phases share their boundaries' clock reads with ``timings``:
+``prefill_ms`` is dispatch + sync, ``decode_ms`` is prepare + dispatch +
+sync, exactly.  A dispatch span is the host's enqueueing only while the
+card keeps up: once the card's launch queue is full, each launch waits
+in it for the card, and the sync that follows reads only the queue's
+drain.
 """
 from __future__ import annotations
 
@@ -44,6 +67,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import decode_step, init_cache, prefill
 from ..models.model import slot_view
 from ..runtime.fault import HeartbeatMonitor
+from ..trace import Trace, now_ns
 
 PyTree = Any
 
@@ -90,8 +114,10 @@ class ServingEngine:
                  lcx_device: Optional[Any] = None,
                  failover: bool = False,
                  heartbeat: Optional[Any] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 trace: bool = True) -> None:
         self.device = resolve_device(device)
+        self.trace = Trace(enabled=trace)
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
@@ -108,7 +134,8 @@ class ServingEngine:
                 lcx_runtime = lcx.Runtime(name="serving")
             self.lcx_runtime: Optional[Any] = lcx_runtime
             self._executor: Optional[Executor] = Executor(
-                name="serving", runtime=lcx_runtime, device=lcx_device)
+                name="serving", runtime=lcx_runtime, device=lcx_device,
+                trace=self.trace if self.trace.enabled else None)
             if failover or heartbeat is not None:
                 # Warm standby on the serving device's axis: if the
                 # heartbeat declares the primary dead mid-stream, its
@@ -178,36 +205,47 @@ class ServingEngine:
             self._evict(req, f"prompt length {plen} >= max_seq "
                              f"{self.scfg.max_seq}")
             return True
-        t0 = time.perf_counter()
-        try:
-            toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                   device=self.device)[None]
-            # exact-length prefill straight into the slot's cache.  A
-            # failed prefill may leave it half written: KV rows past the
-            # slot's length are masked, an SSM state is masked by nothing,
-            # and both are overwritten by the slot's next prefill
-            lg, _ = prefill(self.cfg, self.params, toks,
-                            slot_view(self.cfg, self.caches, slot),
-                            kernels=self.kernels)
-        except Exception as e:
-            self._evict(req, f"prefill failed: {type(e).__name__}: {e}")
-            return True
-        self.lengths[slot] = plen
-        self.slot_req[slot] = req
-        self.stats["prefills"] += 1
-        # sample the first generated token from the prefill logits
-        tok = int(sample_token(lg[:, -1], self.scfg.temperature,
-                               self._gen)[0])
-        self.timings["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
-        req.output.append(tok)
-        self.stats["decoded_tokens"] += 1
-        # the first token may already terminate the request
-        limit = req.max_new_tokens or self.scfg.max_new_tokens
-        if (self.scfg.eos_token is not None
-                and tok == self.scfg.eos_token) \
-                or len(req.output) >= limit:
-            self._finish(req, slot)
+        with self.trace.span("engine.admit", rid=req.rid):
+            t0 = now_ns()
+            try:
+                tok = self._dispatch_prefill(req.prompt, slot)
+            except Exception as e:
+                self._evict(req, f"prefill failed: {type(e).__name__}: {e}")
+                return True
+            t1 = now_ns()
+            tok = int(tok[0])
+            t2 = now_ns()
+            self.timings["prefill_ms"].append((t2 - t0) / 1e6)
+            self.trace.add("prefill.dispatch", t0, t1, prompt=plen)
+            self.trace.add("prefill.sync", t1, t2)
+            self.lengths[slot] = plen
+            self.slot_req[slot] = req
+            self.stats["prefills"] += 1
+            req.output.append(tok)
+            self.stats["decoded_tokens"] += 1
+            # the first token may already terminate the request
+            limit = req.max_new_tokens or self.scfg.max_new_tokens
+            if (self.scfg.eos_token is not None
+                    and tok == self.scfg.eos_token) \
+                    or len(req.output) >= limit:
+                self._finish(req, slot)
         return True
+
+    def _dispatch_prefill(self, prompt: np.ndarray,
+                          slot: int) -> torch.Tensor:
+        """Enqueue ``prompt``'s prefill into ``slot`` and the sampling of
+        its first token, which stays on the device (``prefill.dispatch``).
+        A failed prefill may leave the slot's cache half written: KV rows
+        past the slot's length are masked, an SSM state is masked by
+        nothing, and both are overwritten by the slot's next prefill."""
+        toks = torch.as_tensor(np.asarray(prompt, np.int64),
+                               device=self.device)[None]
+        # exact-length prefill straight into the slot's cache
+        lg, _ = prefill(self.cfg, self.params, toks,
+                        slot_view(self.cfg, self.caches, slot),
+                        kernels=self.kernels)
+        # sample the first generated token from the prefill logits
+        return sample_token(lg[:, -1], self.scfg.temperature, self._gen)
 
     # -- decode tick ----------------------------------------------------------
     def tick(self) -> int:
@@ -217,10 +255,15 @@ class ServingEngine:
         With an executor, admission and decode run as a per-tick task
         graph: one prefill-admission task per queued request (priority
         keeps arrival order) feeding one decode task."""
-        if self._executor is not None:
-            return self._tick_executor()
-        self._admit()
-        return self._decode_tick()
+        with self.trace.span("engine.tick",
+                             queued=len(self.queue)) as span:
+            if self._executor is not None:
+                live = self._tick_executor()
+            else:
+                self._admit()
+                live = self._decode_tick()
+            span.set(live=len(self.slot_req) - self.slot_req.count(None))
+        return live
 
     def _tick_executor(self) -> int:
         ex = self._executor
@@ -244,34 +287,50 @@ class ServingEngine:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return 0
-        t0 = time.perf_counter()
-        tokens = np.zeros((self.scfg.n_slots, 1), np.int64)
-        for i in active:
-            req = self.slot_req[i]
-            tokens[i, 0] = req.output[-1] if req.output \
-                else req.prompt[-1]
-        lg, _ = decode_step(
-            self.cfg, self.params,
-            torch.as_tensor(tokens, device=self.device), self.caches,
-            torch.as_tensor(self.lengths, device=self.device),
-            kernels=self.kernels)
-        nxt = sample_token(lg[:, 0], self.scfg.temperature,
-                           self._gen).cpu().numpy()
-        self.timings["decode_ms"].append(1e3 * (time.perf_counter() - t0))
-        self.stats["ticks"] += 1
-        for i in active:
-            req = self.slot_req[i]
-            self.lengths[i] += 1
-            tok = int(nxt[i])
-            req.output.append(tok)
-            self.stats["decoded_tokens"] += 1
-            limit = req.max_new_tokens or self.scfg.max_new_tokens
-            if (self.scfg.eos_token is not None
-                    and tok == self.scfg.eos_token) \
-                    or len(req.output) >= limit \
-                    or self.lengths[i] >= self.scfg.max_seq - 1:
-                self._finish(req, i)
+        with self.trace.span("engine.decode", live=len(active)):
+            t0 = now_ns()
+            tokens = np.zeros((self.scfg.n_slots, 1), np.int64)
+            for i in active:
+                req = self.slot_req[i]
+                tokens[i, 0] = req.output[-1] if req.output \
+                    else req.prompt[-1]
+            tokens = torch.as_tensor(tokens, device=self.device)
+            lengths = torch.as_tensor(self.lengths, device=self.device)
+            t1 = now_ns()
+            nxt = self._dispatch_decode(tokens, lengths)
+            t2 = now_ns()
+            nxt = nxt.cpu().numpy()
+            t3 = now_ns()
+            self.timings["decode_ms"].append((t3 - t0) / 1e6)
+            self.stats["ticks"] += 1
+            finished = 0
+            for i in active:
+                req = self.slot_req[i]
+                self.lengths[i] += 1
+                tok = int(nxt[i])
+                req.output.append(tok)
+                self.stats["decoded_tokens"] += 1
+                limit = req.max_new_tokens or self.scfg.max_new_tokens
+                if (self.scfg.eos_token is not None
+                        and tok == self.scfg.eos_token) \
+                        or len(req.output) >= limit \
+                        or self.lengths[i] >= self.scfg.max_seq - 1:
+                    self._finish(req, i)
+                    finished += 1
+            tr = self.trace
+            tr.add("decode.prepare", t0, t1)
+            tr.add("decode.dispatch", t1, t2)
+            tr.add("decode.sync", t2, t3)
+            tr.add("decode.bookkeeping", t3, now_ns(), finished=finished)
         return len(active)
+
+    def _dispatch_decode(self, tokens: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+        """Enqueue one decode step of every slot and the sampling of its
+        tokens, which stay on the device (``decode.dispatch``)."""
+        lg, _ = decode_step(self.cfg, self.params, tokens, self.caches,
+                            lengths, kernels=self.kernels)
+        return sample_token(lg[:, 0], self.scfg.temperature, self._gen)
 
     def run_until_drained(self, max_ticks: int = 10000) -> List[Request]:
         for _ in range(max_ticks):
