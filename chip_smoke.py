@@ -16,7 +16,13 @@ non-zero:
    serving shapes and a few others (flash also at qwen3-moe-30b-a3b's
    attention shape and on the strided seq-major views the model's hook
    passes), then timed beside its plain version and, where one exists,
-   one PyTorch library call;
+   one PyTorch library call; the GQA decode-attention kernel (RoPE, the
+   cache-row write and split-KV attention in one launch) against its
+   plain version at internlm2-20b's two benchmark cells' shapes (32 slots
+   of 1,185 rows, 24 of 6,187), starcoder2-7b's window, qwen2-0.5b's head
+   dim of 64 and command-r-plus's 12 query heads a KV head, free slots at
+   length 0 and full ones included: the caches bit for bit, the output
+   within ``TOL``; timed beside its plain version and SDPA;
 4. serve, one path after another: ``qwen2-0.5b``, ``mamba2-130m`` and
    ``qwen3-moe-30b-a3b`` (48 layers, ~30.5 B parameters), each at full
    width in bf16 (random weights from seed 0, drawn on the card), answer
@@ -25,8 +31,10 @@ non-zero:
    each run and read just after: flash and SSD must have launched once
    per layer of their kind and prefill, the grouped matmul three times
    per MoE layer and prefill or decode tick (decode runs the experts
-   too), and no kernel of another path.  Then a prefill and four decode
-   ticks run under ``torch.profiler``, which reports the device's busy
+   too), decode attention once per GQA layer and decode tick (bf16
+   configs with a head dim of 64 or 128), and no kernel of another path.
+   Then a prefill and four decode ticks run under ``torch.profiler``,
+   which reports the device's busy
    share and the kernels that take its time, and one prefill and one
    decode tick run with the engine's dispatch spans under CUDA's sync
    debug mode, which logs any call in them that waits for the card
@@ -154,10 +162,10 @@ and that ``backend="xla"`` on CUDA tensors raises, naming each kernel's
 plain function, with no launch.
 
 Output: one line per check, then a ``{"kernels": [...]}`` JSON line
-(flash attention, SSD scan, ring all-gather, grouped matmul; the flash
-and grouped-matmul launches of the mesh paths counted in), the card's
-name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  It
+(flash attention, SSD scan, ring all-gather, grouped matmul, decode
+attention at each checked shape; the flash and grouped-matmul launches of
+the mesh paths counted in), the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``.  It
 imports nothing of JAX: the reference package is not used here.
 """
 from __future__ import annotations
@@ -522,10 +530,11 @@ def gmm_bound_ms(e, c, d, f, dtype_name) -> tuple:
 
 
 def _kernel_modules():
-    from repro_torch.kernels import (flash_attention, moe_gmm,
-                                     ring_allgather, ssd_scan)
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     moe_gmm, ring_allgather, ssd_scan)
     return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-            "ring_allgather": ring_allgather, "moe_gmm": moe_gmm}
+            "ring_allgather": ring_allgather, "moe_gmm": moe_gmm,
+            "decode_attention": decode_attention}
 
 
 def reset_counts() -> None:
@@ -790,6 +799,10 @@ def phase_backend_xla():
     xb, w = rnd(4, 8, 64), rnd(4, 64, 32)
     r = rnd(4, 1, 1000)
     hooks = ops.model_kernels(get_config("qwen2-0.5b"), backend="xla")
+    dq, dkv = rnd(2, 1, 14, 64), rnd(2, 1, 2, 64)
+    dcs, dcache = rnd(2, 32, dt=torch.float32), rnd(2, 64, 2, 64)
+    dlen = torch.tensor([0, 9], dtype=torch.int32, device="cuda")
+    dargs = (dq, dkv, dkv, dcs, dcs, dcache, dcache, dlen)
 
     def ring():
         with ranks.bind_axis("r", 4):
@@ -806,6 +819,10 @@ def phase_backend_xla():
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, scale=0.125),
         "moe_gmm_plain (hook)": lambda: hooks["moe_gmm"](xb, w),
+        "decode_attention_plain": lambda: ops.decode_attention(
+            *dargs, scale=0.125, backend="xla"),
+        "decode_attention_plain (hook)": lambda: hooks["decode_attention"](
+            *dargs, scale=0.125, window=None),
     }
     reset_counts()
     for plain, call in calls.items():
@@ -1126,6 +1143,125 @@ def gmm_row(entries, path_err, launches):
     }
 
 
+# the decode-attention kernel's checked shapes: (label, slots, Smax, KV
+# heads, query heads a KV head, head dim, window, share of slots free)
+DECODE_CASES = (
+    ("internlm2-chat", 32, 1185, 8, 6, 128, None, 0.0),
+    ("internlm2-code", 24, 6187, 8, 6, 128, None, 0.5),
+    ("starcoder2 window", 8, 6187, 4, 9, 128, 4096, 0.0),
+    ("qwen2 hd 64", 8, 1024, 2, 7, 64, None, 0.25),
+    ("command-r-plus G 12", 8, 1024, 8, 12, 128, None, 0.25),
+)
+
+
+def decode_bound_ms(b, hq, hkv, hd, rows) -> tuple:
+    """(operations ms, bytes ms) for one decode-attention launch: the two
+    products over each slot's ``rows`` valid rows against the tensor-core
+    rate; those rows of K and V, q, k_new, v_new, cos, sin and the lengths
+    read once, the output and the two cache rows written once against the
+    memory rate."""
+    nbytes = (4 * hkv * hd * rows + 2 * b * hq * hd * 2
+              + 2 * b * hkv * hd * 2 * 2 + b * hd * 4 + b * 4)
+    return (4 * hq * hd * rows / PEAK_FLOPS["bfloat16"] * 1e3,
+            nbytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def phase_decode_check():
+    """The decode-attention kernel against its plain version at
+    ``DECODE_CASES``: random bf16 q, new rows and caches (every row
+    filled, so a row read past a slot's length shows), lengths of free
+    slots (0), one row, Smax - 1 and random ones.  The caches after the
+    call must be equal bit for bit (the same f32 RoPE, rounded once, in
+    the same row); the outputs within ``TOL["bfloat16"]``: the kernel
+    rounds p to bf16 before dividing by the row sum, the plain version
+    after, and the two sum in another order, so they may land one bf16
+    step apart.  Each is also held against ``ref.decode_attention_ref``
+    (f32, a slot at a time).  Then each shape is timed: the kernel, the
+    plain version, and ``F.scaled_dot_product_attention`` over the same
+    rows (the attention alone, on roped q and the written cache) as the
+    library yardstick.  Returns the kernels line's row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import apply_rope, rope_cos_sin
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device="cuda").to(bf16)
+    shapes, worst = {}, 0.0
+    launches0 = da.launches
+    for label, b, smax, hkv, g, hd, window, free in DECODE_CASES:
+        rng = np.random.default_rng(smax + g)
+        lens = rng.integers(0, smax - 1, b)
+        lens[:3] = (0, 1, smax - 1)
+        lens[3:3 + int(free * b)] = 0
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        hq, scale = hkv * g, hd ** -0.5
+        q, k_new, v_new = rnd(b, 1, hq, hd), rnd(b, 1, hkv, hd), \
+            rnd(b, 1, hkv, hd)
+        cos, sin = rope_cos_sin(lengths, hd, 1e6)
+        kc, vc = rnd(b, smax, hkv, hd), rnd(b, smax, hkv, hd)
+        caches = {n: (kc.clone(), vc.clone()) for n in ("kernel", "plain")}
+        args = lambda n: (q, k_new, v_new, cos, sin) + caches[n] + (lengths,)
+        got = da.decode_attention(*args("kernel"), scale=scale, window=window)
+        want = da.decode_attention_plain(*args("plain"), scale=scale,
+                                         window=window)
+        torch.cuda.synchronize()
+        exact, _, _ = ref.decode_attention_ref(q, k_new, v_new, cos, sin, kc,
+                                               vc, lengths, scale=scale,
+                                               window=window)
+        same = all(torch.equal(a, c) for a, c in
+                   zip(caches["kernel"], caches["plain"]))
+        err = float((got.float() - want.float()).abs().max())
+        err_k = float((got.float() - exact.float()).abs().max())
+        err_p = float((want.float() - exact.float()).abs().max())
+        atol, rtol = TOL["bfloat16"]
+        ok = same and bool(torch.allclose(got.float(), want.float(),
+                                          atol=atol, rtol=rtol))
+        worst = max(worst, err)
+        lo = np.maximum(0, lens - window + 1) if window else 0
+        rows = int((np.minimum(lens, smax - 1) - lo + 1).sum())
+        log(f"decode check: {label}: B {b}, Smax {smax}, Hq {hq}, Hkv {hkv}, "
+            f"hd {hd}, window {window}, lengths {sorted(lens.tolist())[:4]}"
+            f"..{int(lens.max())} ({rows} valid rows): caches equal {same}, "
+            f"max |kernel - plain| {err:.3e}, against f32: kernel "
+            f"{err_k:.3e}, plain {err_p:.3e} {'ok' if ok else 'FAIL'}")
+        require(ok, f"decode check {label}: caches equal {same}, max abs "
+                f"error {err}")
+        qr = apply_rope(q, cos[:, None], sin[:, None]).transpose(1, 2)
+        kpos = torch.arange(smax, device="cuda")
+        mask = (kpos[None] <= lengths[:, None].long()) & (
+            kpos[None] > lengths[:, None].long() - (window or smax + 1))
+        kt, vt = (t.transpose(1, 2) for t in caches["kernel"])
+        times = (device_ms(lambda: da.decode_attention(
+                     *args("kernel"), scale=scale, window=window)),
+                 device_ms(lambda: da.decode_attention_plain(
+                     *args("plain"), scale=scale, window=window)),
+                 device_ms(lambda: F.scaled_dot_product_attention(
+                     qr, kt, vt, attn_mask=mask[:, None, None], scale=scale,
+                     enable_gqa=True)))
+        ops_ms, bytes_ms = decode_bound_ms(b, hq, hkv, hd, rows)
+        bound = max(ops_ms, bytes_ms)
+        shapes[label] = {
+            "ms": times[0], "plain_ms": times[1], "library_ms": times[2],
+            "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "roofline_pct": 100 * bound / times[0], "valid_rows": rows}
+        log(f"decode device time a launch: {label}: kernel {times[0]:.5f} "
+            f"ms, plain {times[1]:.5f} ms, SDPA {times[2]:.5f} ms, bound "
+            f"{bound:.6f} ms ({shapes[label]['bound_by']}; "
+            f"{100 * bound / times[0]:.1f}% of it); card {smi()}")
+        del caches, kc, vc
+    log(f"decode check: {len(DECODE_CASES)} shapes; the kernel launched "
+        f"{da.launches - launches0} times (not counted below)")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": None, "max_abs_err": worst, "shapes": shapes}
+
+
 def _prompts(vocab):
     import numpy as np
     rng = np.random.default_rng(0)
@@ -1298,20 +1434,25 @@ def expected_launches(cfg, prefills, ticks=0) -> dict:
     """Each kernel's launches in a run of ``prefills`` prefills (or
     full-sequence forwards: an encoder's ``apply_model`` is one) and
     ``ticks`` decode ticks: flash and SSD once per prefill and layer of
-    their kind (decode attention and Mamba decode are plain PyTorch, as in
-    the reference), flash only for a config without a sliding window
-    (``model_kernels`` gives a windowed config no flash hook) and never in
-    an MLA layer (the reference gives MLA no flash hook), causal or not;
-    the grouped matmul once per expert projection (3) of every MoE layer
-    in every prefill and decode tick."""
+    their kind (Mamba decode is plain PyTorch, as in the reference), flash
+    only for a config without a sliding window (``model_kernels`` gives a
+    windowed config no flash hook) and never in an MLA layer (the
+    reference gives MLA no flash hook), causal or not; the grouped matmul
+    once per expert projection (3) of every MoE layer in every prefill and
+    decode tick; decode attention once per GQA layer and decode tick where
+    ``model_kernels`` gives its hook (``decode_attention.takes``)."""
+    from repro_torch.kernels import decode_attention
     plan = cfg.layer_plan()
     flash = 0 if cfg.sliding_window else 1
+    decode = ticks if decode_attention.takes(cfg) else 0
     return {"flash_attention": flash * prefills * sum(l.mixer == "attn"
                                                       for l in plan),
             "ssd_scan": prefills * sum(l.mixer == "mamba" for l in plan),
             "ring_allgather": 0,
             "moe_gmm": 3 * (prefills + ticks) * sum(l.ffn == "moe"
-                                                    for l in plan)}
+                                                    for l in plan),
+            "decode_attention": decode * sum(l.mixer == "attn"
+                                             for l in plan)}
 
 
 class _RecordRoutes:
@@ -1639,7 +1780,7 @@ def phase_llava(prompt):
     reset_counts()
     out, pre, dec = run(full, params)
     counts = read_counts()
-    want = expected_launches(full, 1)
+    want = expected_launches(full, 1, LLAVA_NEW - 1)
     require(counts == want and want["flash_attention"] == full.n_layers,
             f"llava launches {counts}, expected {want}")
     log(f"llava: {full.name} full width and depth ({full.n_layers} layers, "
@@ -2076,7 +2217,8 @@ def phase_collectives():
             s, "x", axis_size=n) for s in shards])
         counts = read_counts()
         require(counts == {"flash_attention": 0, "ssd_scan": 0,
-                           "ring_allgather": cfg.n_layers, "moe_gmm": 0},
+                           "ring_allgather": cfg.n_layers, "moe_gmm": 0,
+                           "decode_attention": 0},
                 f"FSDP gather launches {counts}")
         log(f"fsdp gather: {cfg.n_layers} layers x {QWEN_LAYER_PARAMS} bf16 "
             f"params over {n} ranks through ops.ring_all_gather: host "
@@ -2332,7 +2474,7 @@ def phase_failover(prompts, want_tokens):
     migrated = sum(m for _, _, m in got.values())
     require(migrated >= len(prompts) - 8, f"only {migrated} hand-offs "
             f"were delivered by the survivor")
-    want = expected_launches(cfg, len(prompts))
+    want = expected_launches(cfg, len(prompts), eng.stats["ticks"])
     require(counts == want, f"launches {counts}, expected {want}")
     tokens = {r.rid: list(r.output) for r in done}
     require(tokens == want_tokens, "failover serve tokens differ from the "
@@ -3600,9 +3742,11 @@ def main() -> int:
         moe_caps, capacity(moe_cfg, EP_TOKENS),
         [capacity(ds_cfg, len(p)) for p in ds_prompts]
         + [capacity(ds_cfg, RES_BATCH)], ep_mesh_rows)
+    decode = phase_decode_check()
     mark("kernel checks")
     phase_trace_cost()
     counts, qwen_tokens, _, _ = phase_serve("qwen2-0.5b", prompts)
+    decode_launches = counts["decode_attention"]
     qwen_layers = get_config("qwen2-0.5b").n_layers
     flash_entries = [(flash_times[len(p)], qwen_layers) for p in prompts]
     flash_launches = counts["flash_attention"]
@@ -3610,6 +3754,7 @@ def main() -> int:
     ssd["launches"] = phase_serve("mamba2-130m", m_prompts)[0]["ssd_scan"]
     release()
     counts, _, stats, _ = phase_serve("qwen3-moe-30b-a3b", moe_prompts)
+    decode_launches += counts["decode_attention"]
     moe_layers = sum(l.ffn == "moe" for l in moe_cfg.layer_plan())
     gmm_entries = [(gmm_times[c], moe_layers) for c in moe_caps]
     gmm_entries.append((gmm_times[8], moe_layers * stats["ticks"]))
@@ -3647,8 +3792,9 @@ def main() -> int:
                           **SERVE_CUTS["deepseek-v3-671b"])[3]
     release()
     for arch in ("internlm2-20b", "starcoder2-7b", "command-r-plus-104b"):
-        phase_serve(arch, _prompts(get_config(arch).vocab),
-                    **SERVE_CUTS.get(arch, {}))
+        decode_launches += phase_serve(arch, _prompts(get_config(arch).vocab),
+                                       **SERVE_CUTS.get(arch, {}))[0][
+                                           "decode_attention"]
         release()
     mark("serve of the dense and MLA paths")
     for arch, cut in GREEDY_CUTS.items():
@@ -3695,7 +3841,8 @@ def main() -> int:
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the reference package or JAX was imported")
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, ssd, ring, gmm]}))
+    decode["launches"] = decode_launches      # the serve phases'
+    print(json.dumps({"kernels": [flash, ssd, ring, gmm, decode]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention", "ssd_scan", "ring_allgather", "moe_gmm")
+SOURCES = ("flash_attention", "ssd_scan", "ring_allgather", "moe_gmm",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

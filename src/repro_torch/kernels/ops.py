@@ -14,7 +14,17 @@
 - ``moe_gmm(xb, w)``: the expert FFN's products, xb [E,C,d] @ w [E,d,f]
   -> [E,C,f].  The reference builds no such hook (its expert FFN runs
   einsums, which compute the same function); the port's ``_expert_ffn``
-  runs the kernel when the hook is there and the einsums when not.
+  runs the kernel when the hook is there and the einsums when not;
+- ``decode_attention(q, k_new, v_new, cos, sin, k_cache, v_cache,
+  lengths, *, scale, window)`` -> out [B,1,Hq,hd]: one decode step of a
+  GQA layer between its projections, fused: RoPE of the un-roped q and
+  k_new, the cache-row write in place and the attention over each slot's
+  valid rows (``decode_attention.decode_attention``).  Given where
+  ``decode_attention.takes(cfg)``: bf16, GQA layers, a head dim of 64 or
+  128 and at most 16 query heads a KV head (every GQA config of the
+  port), a sliding window included.  The reference builds no such hook
+  (it decodes in plain JAX); ``attn_decode`` runs its plain steps when
+  the hook is absent.
 
 ``ring_all_gather(x, axis, *, axis_size)`` is the ring kernel's own entry
 point, as in the reference: LCX's ``all_gather`` does not call it.
@@ -33,13 +43,15 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..core import ranks
+from . import decode_attention as _decode
 from . import ring_allgather as _ring
+from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .moe_gmm import moe_gmm
 from .ssd_scan import ssd_scan
 
 __all__ = ["flash_attention", "ssd_scan", "moe_gmm", "ring_all_gather",
-           "model_kernels"]
+           "decode_attention", "model_kernels"]
 
 
 def ring_all_gather(x: torch.Tensor, axis: str, *, axis_size: int,
@@ -66,8 +78,8 @@ def model_kernels(cfg: Any, backend: Optional[str] = None
     the kernel applies no window, so prefill takes the plain windowed
     attention (``attention_full`` / ``attention_chunked``), as the
     reference's serve path does (it builds its engine with no kernels).
-    Such a config keeps the ``ssd_scan`` and ``moe_gmm`` hooks.  Every
-    hook passes ``backend`` on."""
+    Such a config keeps the ``ssd_scan``, ``moe_gmm`` and
+    ``decode_attention`` hooks.  Every hook passes ``backend`` on."""
     q_block = getattr(cfg, "q_block", 256)
 
     def attn_hook(q, k, v, *, causal, scale):
@@ -84,7 +96,15 @@ def model_kernels(cfg: Any, backend: Optional[str] = None
     def gmm_hook(xb, w):
         return moe_gmm(xb, w, backend=backend)
 
+    def decode_hook(q, k_new, v_new, cos, sin, k_cache, v_cache, lengths,
+                    *, scale, window):
+        return decode_attention(q, k_new, v_new, cos, sin, k_cache, v_cache,
+                                lengths, scale=scale, window=window,
+                                backend=backend)
+
     hooks = {"ssd_scan": ssd_hook, "moe_gmm": gmm_hook}
     if not getattr(cfg, "sliding_window", None):  # cfg may be None
         hooks["flash_attention"] = attn_hook
+    if _decode.takes(cfg):
+        hooks["decode_attention"] = decode_hook
     return hooks

@@ -62,3 +62,45 @@ def ring_allgather_ref(x: torch.Tensor) -> torch.Tensor:
     rank."""
     n = x.shape[0]
     return x[:, 0].unsqueeze(0).expand((n,) + tuple(x[:, 0].shape)).clone()
+
+
+def decode_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                         scale: float, window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step, a sequence at a time, in f32, the caches left as
+    they are: q [B,1,Hq,hd] and k_new / v_new [B,1,Hkv,hd] un-roped, cos /
+    sin [B,hd/2], caches [B,Smax,Hkv,hd], lengths [B] -> (out [B,1,Hq,hd]
+    in q's dtype, the key and value rows [B,Hkv,hd] that belong at row
+    ``min(length, Smax - 1)``, in the cache's dtype).  Sequence i attends
+    the rows ``max(0, len - window + 1) .. len`` with the new row in
+    place."""
+    b, _, hq, hd = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    half = hd // 2
+
+    def rope(x, i):                     # x [H, hd] -> f32
+        x = x.float()
+        c, s = cos[i].float(), sin[i].float()
+        return torch.cat([x[:, :half] * c - x[:, half:] * s,
+                          x[:, :half] * s + x[:, half:] * c], dim=-1)
+
+    outs, k_rows, v_rows = [], [], []
+    for i in range(b):
+        n = int(lengths[i])
+        at = min(max(n, 0), smax - 1)
+        k_row = rope(k_new[i, 0], i).to(k_cache.dtype)
+        v_row = v_new[i, 0].to(v_cache.dtype)
+        lo = 0 if window is None else max(0, n - window + 1)
+        k = torch.cat([k_cache[i, lo:at], k_row[None]]).float()
+        v = torch.cat([v_cache[i, lo:at], v_row[None]]).float()
+        qi = rope(q[i, 0], i).to(q.dtype).float()          # [Hq, hd]
+        qg = qi.reshape(hkv, hq // hkv, hd)
+        p = torch.softmax(torch.einsum("hgd,khd->hgk", qg, k) * scale, -1)
+        o = torch.einsum("hgk,khd->hgd", p, v)
+        outs.append(o.reshape(1, hq, hd).to(q.dtype))
+        k_rows.append(k_row)
+        v_rows.append(v_row)
+    return torch.stack(outs), torch.stack(k_rows), torch.stack(v_rows)

@@ -8,10 +8,14 @@ training passes none, as the reference's does); without one it runs
 online-softmax path (``impl="chunked"``, the default, or
 ``"chunked_causal_skip"``: the lower-triangular schedule that never
 computes a block above the diagonal, :func:`_flash_causal_skip`).
-Decode (:func:`attn_decode`) stays
-plain PyTorch, as the reference computes it outside any kernel, and
-takes one cache length per sequence so that slots at different fill
-levels share one batch.  Under a mesh whose rules shard the cache's
+Decode (:func:`attn_decode`) takes
+one cache length per sequence so that slots at different fill levels
+share one batch.  Without a hook it is plain PyTorch, as the reference
+computes it outside any kernel (:func:`decode_attend`); with the
+``"decode_attention"`` hook of ``model_kernels`` (bf16 configs with a
+head dim of 64 or 128 and at most 16 query heads a KV head) RoPE, the
+cache-row write and the attention over each sequence's valid rows are
+one Hopper kernel, fed the un-roped projections.  Under a mesh whose rules shard the cache's
 sequence dim over ``model`` (``launch.steps.decode_rules``) decode is
 context-parallel (:func:`attn_decode_sharded`): the cache is viewed as
 ``[n_ranks, ...]`` shards of its sequence, each rank writes its own row
@@ -349,10 +353,9 @@ def _pick_chunks(s: int, block: int, tp: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
-def _project_qkv(cfg: Any, p: PyTree, x: torch.Tensor,
-                 positions: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B,S,D]; positions [S] or [B,S]."""
+def _project(cfg: Any, p: PyTree, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> q [B,S,Hq,hd], k, v [B,S,Hkv,hd], before RoPE."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
@@ -361,7 +364,15 @@ def _project_qkv(cfg: Any, p: PyTree, x: torch.Tensor,
     if cfg.qk_norm:
         q = norm("rms", p["qnorm"], q, cfg.norm_eps)
         k = norm("rms", p["knorm"], k, cfg.norm_eps)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    return q, k, v
+
+
+def _project_qkv(cfg: Any, p: PyTree, x: torch.Tensor,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B,S,D]; positions [S] or [B,S]."""
+    q, k, v = _project(cfg, p, x)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -512,31 +523,58 @@ def attn_decode_sharded(cfg: Any, q: torch.Tensor, k_new: torch.Tensor,
     return y.to(q.dtype), cache
 
 
-def attn_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
-                lengths: torch.Tensor) -> Tuple[torch.Tensor, PyTree]:
-    """One decode step.  x [B,1,D]; cache k/v [B,Smax,Hkv,hd]; lengths
-    [B] (tokens already in each sequence's cache).  Writes row
-    ``lengths[i]`` of sequence i in place; returns (y [B,1,D], cache)."""
-    b = x.shape[0]
-    positions = lengths.to(torch.int32)[:, None]            # [B, 1]
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
-    if seq_sharded_decode(cache["k"].shape[1]):
-        out, cache = attn_decode_sharded(cfg, q, k_new, v_new, cache,
-                                         lengths)
-        y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
-        return y, cache
-    k, v = cache["k"], cache["v"]
-    smax = k.shape[1]
-    rows = torch.arange(b, device=x.device)
+def decode_attend(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor, *,
+                  scale: float, window: Optional[int]) -> torch.Tensor:
+    """The plain decode between RoPE and the output projection: write the
+    roped ``k_new`` and ``v_new`` [B,1,Hkv,hd] into row ``lengths[i]`` of
+    sequence i of the cache ``k``, ``v`` [B,Smax,Hkv,hd] in place, then
+    attend q [B,1,Hq,hd] over every row up to it (within ``window``)."""
+    b, smax = k.shape[:2]
+    rows = torch.arange(b, device=q.device)
     # the reference's dynamic_update_slice clamps the start into range
     at = torch.clamp(lengths.long(), 0, smax - 1)
     k[rows, at] = k_new[:, 0].to(k.dtype)
     v[rows, at] = v_new[:, 0].to(v.dtype)
-    k_pos = torch.arange(smax, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(smax, dtype=torch.int32, device=q.device)
     k_valid = k_pos[None, :] <= lengths[:, None]            # [B, Smax]
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    out = attention_full(q, k.to(x.dtype), v.to(x.dtype), scale=scale,
-                         causal=False, window=cfg.sliding_window,
-                         q_pos=positions, k_pos=k_pos, k_valid=k_valid)
-    y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+    return attention_full(q, k.to(q.dtype), v.to(q.dtype), scale=scale,
+                          causal=False, window=window,
+                          q_pos=lengths.to(torch.int32)[:, None],
+                          k_pos=k_pos, k_valid=k_valid)
+
+
+def attn_decode(cfg: Any, p: PyTree, x: torch.Tensor, cache: PyTree,
+                lengths: torch.Tensor, *, kernel_fn: Any = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
+    """One decode step.  x [B,1,D]; cache k/v [B,Smax,Hkv,hd]; lengths
+    [B] (tokens already in each sequence's cache).  Writes row
+    ``lengths[i]`` of sequence i in place; returns (y [B,1,D], cache).
+
+    ``kernel_fn`` (the ``"decode_attention"`` hook of ``model_kernels``)
+    takes the un-roped q, k and v and does RoPE, the row write and the
+    attention in one kernel, with ``rope`` = (cos, sin) [B, hd/2] of the
+    step (``decode_step`` computes them once for every layer).  A
+    sequence-sharded cache takes :func:`attn_decode_sharded` whatever is
+    given."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    if kernel_fn is not None and not seq_sharded_decode(cache["k"].shape[1]):
+        q, k_new, v_new = _project(cfg, p, x)
+        cos, sin = rope or rope_cos_sin(lengths, hd, cfg.rope_theta)
+        out = kernel_fn(q, k_new, v_new, cos, sin, cache["k"], cache["v"],
+                        lengths, scale=scale, window=cfg.sliding_window)
+    else:
+        positions = lengths.to(torch.int32)[:, None]        # [B, 1]
+        q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+        if seq_sharded_decode(cache["k"].shape[1]):
+            out, cache = attn_decode_sharded(cfg, q, k_new, v_new, cache,
+                                             lengths)
+        else:
+            out = decode_attend(q, k_new, v_new, cache["k"], cache["v"],
+                                lengths, scale=scale,
+                                window=cfg.sliding_window)
+    y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * hd))
     return y, cache

@@ -46,7 +46,8 @@ from ..device import DeviceLike, resolve_device
 from ..parallel.sharding import active_mesh, active_rules, use_mesh
 from .attention import attn_apply, attn_cache_init, attn_decode, attn_init
 from .common import (PyTree, dense, dense_init, embed, embed_init, gelu,
-                     norm, norm_init, softmax_xent, swiglu, tree_map)
+                     norm, norm_init, rope_cos_sin, softmax_xent, swiglu,
+                     tree_map)
 from .mla import _latents, mla_apply, mla_cache_init, mla_decode, mla_init
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_cache_init, ssm_decode, ssm_init
@@ -94,12 +95,14 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
                 cache: Optional[PyTree] = None,
                 lengths: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None,
-                kernels: Optional[Dict[str, Any]] = None
+                kernels: Optional[Dict[str, Any]] = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer -> (x, the MoE layer's aux loss or None).  In
     ``prefill`` and ``decode`` mode ``cache`` (this layer's ``{k, v}``
     [B,Smax,Hkv,hd], ``{ckv, krope}`` or ``{conv, h}``) is written in
-    place."""
+    place.  ``rope``: the decode step's (cos, sin), for the
+    ``"decode_attention"`` hook."""
     impl = impl or getattr(cfg, "attn_impl", "chunked")
     kernels = kernels or {}
     h = norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -123,7 +126,9 @@ def layer_apply(cfg: Any, spec: Any, p: PyTree, x: torch.Tensor, *,
             if mode == "prefill":
                 _mla_fill_cache(cfg, p["mixer"], h, positions, cache)
     elif mode == "decode":
-        y, _ = attn_decode(cfg, p["mixer"], h, cache, lengths)
+        y, _ = attn_decode(cfg, p["mixer"], h, cache, lengths,
+                           kernel_fn=kernels.get("decode_attention"),
+                           rope=rope)
     else:
         y, k, v = attn_apply(cfg, p["mixer"], h, positions=positions,
                              impl=impl,
@@ -225,7 +230,8 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
                  caches: Optional[PyTree] = None,
                  lengths: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None,
-                 kernels: Optional[Dict[str, Any]] = None
+                 kernels: Optional[Dict[str, Any]] = None,
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the prefix and the periodic stack -> (x, in ``train`` mode the
     sum of the MoE layers' aux losses in f32, else None: serving has no
@@ -234,7 +240,7 @@ def _stack_sweep(cfg: Any, params: PyTree, x: torch.Tensor, *,
     reference)."""
     prefix, period, _ = cfg.scan_plan()
     kw = dict(positions=positions, mode=mode, lengths=lengths, impl=impl,
-              kernels=kernels)
+              kernels=kernels, rope=rope)
     train = mode == "train"
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if train else None)
@@ -473,12 +479,16 @@ def decode_step(cfg: Any, params: PyTree, tokens: torch.Tensor,
     in place; returns (logits [B, 1, V], caches).  An MoE layer routes
     each sequence's token as if it were alone, as the reference's engine
     does by mapping decode over the sequences: no expert drops one
-    (``moe.decode_capacity``)."""
+    (``moe.decode_capacity``).  With the ``"decode_attention"`` hook the
+    step's RoPE cos and sin are computed here once for every layer."""
     b = tokens.shape[0]
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=tokens.device).expand(b).contiguous()
+    rope = None
+    if kernels and "decode_attention" in kernels:
+        rope = rope_cos_sin(lengths, cfg.head_dim, cfg.rope_theta)
     x = embed(params["embed"], tokens, cfg.dtype)
     x, _ = _stack_sweep(cfg, params, x, positions=lengths[:, None],
                         mode="decode", caches=caches, lengths=lengths,
-                        kernels=kernels)
+                        kernels=kernels, rope=rope)
     return _head_out(cfg, params, x), caches

@@ -5,6 +5,7 @@ matmul.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py``
 holds them against their plain versions there."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -716,3 +717,147 @@ def test_gmm_wrapper_checks_inputs(bad):
         "mixed": ((x, w.bfloat16()), TypeError)}[bad]
     with pytest.raises(err):
         tgmm.moe_gmm(*args)
+
+
+# ---------------------------------------------------------------------------
+# GQA decode attention (no TPU kernel: the reference decodes in plain JAX)
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import decode_attention as tda  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models.common import dense, rope_cos_sin  # noqa: E402
+
+DECODE_SMAX = 40
+DECODE_LENGTHS = {"zero": [0, 0, 0], "one": [1, 1, 1],
+                  "mixed": [0, 17, 38], "last": [39, 39, 39]}
+
+
+def _decode_case(seed, g, hd, window, qk_norm, hkv=2, b=3):
+    """(cfg, params, x [B,1,D] bf16, cache k/v with random rows)."""
+    cfg = TConfig(name="decode", n_layers=1, d_model=32, n_heads=g * hkv,
+                  n_kv_heads=hkv, head_dim=hd, d_ff=64, vocab=16,
+                  qk_norm=qk_norm, sliding_window=window,
+                  rope_theta=1e4, dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    p = tattn.attn_init(gen, cfg, torch.device("cpu"))
+    if qk_norm:   # gains other than 1, so the norm shows
+        for key in ("qnorm", "knorm"):
+            p[key]["g"] = (1 + 0.5 * torch.randn(hd, generator=gen)
+                           ).to(torch.bfloat16)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    shape = (b, DECODE_SMAX, hkv, hd)
+    cache = {n: torch.randn(shape, generator=gen).to(torch.bfloat16)
+             for n in ("k", "v")}
+    return cfg, p, x, cache
+
+
+@pytest.mark.parametrize("lengths", sorted(DECODE_LENGTHS))
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 12])
+def test_plain_decode_attention_equals_attn_decode(g, hd, lengths):
+    """The kernel's plain twin, fed the un-roped projections and the
+    step's cos / sin computed once, gives ``attn_decode``'s plain output
+    and writes the same cache rows, bit for bit: with and without a window
+    shorter than some lengths, with and without qk_norm."""
+    lens = torch.tensor(DECODE_LENGTHS[lengths], dtype=torch.int32)
+    for window, qk_norm in [(None, False), (9, False), (None, True),
+                            (9, True)]:
+        cfg, p, x, cache = _decode_case(g * 100 + hd, g, hd, window, qk_norm)
+        want_cache = {n: t.clone() for n, t in cache.items()}
+        want, _ = tattn.attn_decode(cfg, p, x, want_cache, lens)
+        q, k_new, v_new = tattn._project(cfg, p, x)
+        cos, sin = rope_cos_sin(lens, hd, cfg.rope_theta)
+        out = tda.decode_attention_plain(q, k_new, v_new, cos, sin,
+                                         cache["k"], cache["v"], lens,
+                                         scale=hd ** -0.5, window=window)
+        got = dense(p["wo"], out.reshape(3, 1, -1))
+        assert torch.equal(got, want), (window, qk_norm)
+        for n in ("k", "v"):
+            assert torch.equal(cache[n], want_cache[n]), (n, window, qk_norm)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g,hd", [(6, 128), (7, 64), (12, 128)])
+def test_plain_decode_attention_matches_oracle(g, hd, window):
+    """The plain twin against ``ref.decode_attention_ref``, a sequence at
+    a time in f32: the rows written are the oracle's bit for bit (the
+    same f32 RoPE, rounded once), the output within one bf16 step of
+    |out| <= max|v| plus the plain version's bf16 ``p`` (2^-8 relative
+    each, summed over at most 40 rows)."""
+    cfg, p, x, cache = _decode_case(7, g, hd, window, False)
+    lens = torch.tensor([0, 17, 38], dtype=torch.int32)
+    q, k_new, v_new = tattn._project(cfg, p, x)
+    cos, sin = rope_cos_sin(lens, hd, cfg.rope_theta)
+    want, k_rows, v_rows = tref.decode_attention_ref(
+        q, k_new, v_new, cos, sin, cache["k"], cache["v"], lens,
+        scale=hd ** -0.5, window=window)
+    got = tda.decode_attention(q, k_new, v_new, cos, sin, cache["k"],
+                               cache["v"], lens, scale=hd ** -0.5,
+                               window=window)
+    rows = torch.arange(3)
+    assert torch.equal(cache["k"][rows, lens.long()], k_rows)
+    assert torch.equal(cache["v"][rows, lens.long()], v_rows)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=1e-2)
+
+
+def test_decode_hook_given_where_the_kernel_takes_the_shape():
+    """``model_kernels`` gives the ``decode_attention`` hook exactly to
+    bf16 configs with GQA layers, a head dim of 64 or 128 and at most 16
+    query heads a KV head: every GQA config of the port, a sliding window
+    included, and no MLA, SSM or encoder config."""
+    from repro_torch.configs.base import get_config, list_archs
+    gqa = {"internlm2-20b", "qwen2-0.5b", "qwen3-moe-30b-a3b",
+           "llava-next-mistral-7b", "starcoder2-7b", "command-r-plus-104b",
+           "jamba-1.5-large-398b"}
+    given = {a for a in list_archs()
+             if "decode_attention" in tops.model_kernels(get_config(a))}
+    assert given == gqa & set(list_archs()) and len(given) == len(gqa)
+    base = get_config("internlm2-20b")
+    for over in (dict(dtype=torch.float32), dict(head_dim=96),
+                 dict(n_heads=136, n_kv_heads=8)):
+        cfg = dataclasses.replace(base, **over)
+        assert "decode_attention" not in tops.model_kernels(cfg), over
+    assert "decode_attention" not in tops.model_kernels(None)
+
+
+def test_decode_wrapper_never_falls_back_for_other_devices():
+    """Only CPU tensors take the plain version: a tensor on any other
+    device goes to the kernel or raises."""
+    b, hkv, g, hd = 2, 2, 4, 64
+    m = dict(device="meta", dtype=torch.bfloat16)
+    args = (torch.zeros((b, 1, hkv * g, hd), **m),
+            torch.zeros((b, 1, hkv, hd), **m),
+            torch.zeros((b, 1, hkv, hd), **m),
+            torch.zeros((b, hd // 2), device="meta"),
+            torch.zeros((b, hd // 2), device="meta"),
+            torch.zeros((b, 8, hkv, hd), **m), torch.zeros((b, 8, hkv, hd), **m),
+            torch.zeros(b, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no decode-attention kernel"):
+        tda.decode_attention(*args, scale=0.125)
+    assert tda.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["rank", "k_new", "cos", "lengths",
+                                 "groups", "mixed"])
+def test_decode_wrapper_checks_inputs(bad):
+    b, hkv, g, hd, smax = 2, 2, 3, 16, 8
+    q = torch.zeros((b, 1, hkv * g, hd))
+    kv = torch.zeros((b, 1, hkv, hd))
+    cs = torch.zeros((b, hd // 2))
+    cache = torch.zeros((b, smax, hkv, hd))
+    lens = torch.zeros(b, dtype=torch.int32)
+    args = [q, kv, kv, cs, cs, cache, cache, lens]
+    if bad == "rank":
+        args[0] = q[:, 0]
+    elif bad == "k_new":
+        args[1] = kv[:, :, :1]
+    elif bad == "cos":
+        args[3] = torch.zeros((b, hd))
+    elif bad == "lengths":
+        args[7] = lens[:1]
+    elif bad == "groups":
+        args[0] = torch.zeros((b, 1, 5, hd))
+    else:
+        args[5] = torch.zeros((b, smax, hkv, hd), device="meta")
+    with pytest.raises(ValueError):
+        tda.decode_attention(*args, scale=0.25)

@@ -365,3 +365,88 @@ def test_converter_carries_shared_experts():
     toks = _tokens(33, 2, 12, jcfg.vocab)
     want, _ = japply(jcfg, jp, jnp.asarray(toks))
     _close(apply_model(tcfg, tp, _t(toks))[0], want)
+
+
+# ---------------------------------------------------------------------------
+# the decode-attention hook (its plain twin on the CPU)
+# ---------------------------------------------------------------------------
+def _bf16_at_hd64(name):
+    """``name``'s smoke config in bf16 at head dim 64: a shape the
+    ``decode_attention`` hook takes (the smoke configs' head dim of 16 is
+    not one)."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    return dataclasses.replace(get_smoke_config(name), head_dim=64,
+                               dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
+
+
+def _counting(fn, calls):
+    def wrapped(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+    return wrapped
+
+
+@pytest.mark.parametrize("name", ["internlm2-20b", "qwen3-moe-30b-a3b",
+                                  "starcoder2-7b"])
+def test_attn_decode_with_hook_equals_without(name):
+    """``attn_decode`` through the hook (un-roped projections, the step's
+    cos / sin given or not) gives the plain path's output and cache bit
+    for bit: qwen3-moe with qk_norm, starcoder2 with its bias and a
+    window shorter than some lengths."""
+    from repro_torch.models.attention import attn_decode, attn_init
+    from repro_torch.models.common import rope_cos_sin
+    cfg = _bf16_at_hd64(name)
+    hook = model_kernels(cfg)["decode_attention"]
+    gen = torch.Generator().manual_seed(3)
+    p = attn_init(gen, cfg, torch.device("cpu"))
+    b, smax = 4, 40
+    x = torch.randn((b, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    shape = (b, smax, cfg.n_kv_heads, cfg.head_dim)
+    cache = {n: torch.randn(shape, generator=gen).to(torch.bfloat16)
+             for n in ("k", "v")}
+    lens = torch.tensor([0, 5, 23, 39], dtype=torch.int32)
+    want_cache = {n: t.clone() for n, t in cache.items()}
+    want, _ = attn_decode(cfg, p, x, want_cache, lens)
+    for rope in (rope_cos_sin(lens, cfg.head_dim, cfg.rope_theta), None):
+        got_cache = {n: t.clone() for n, t in cache.items()}
+        calls = []
+        got, _ = attn_decode(cfg, p, x, got_cache, lens,
+                             kernel_fn=_counting(hook, calls), rope=rope)
+        assert calls == [1]
+        assert torch.equal(got, want)
+        for n in ("k", "v"):
+            assert torch.equal(got_cache[n], want_cache[n])
+
+
+@pytest.mark.parametrize("name", ["internlm2-20b", "qwen3-moe-30b-a3b"])
+def test_engine_with_decode_hook_decodes_the_same_tokens(name):
+    """``ServingEngine`` with ``model_kernels`` (the decode hook's plain
+    twin here) gives every request the tokens it gets without kernels,
+    and the hook runs once per attention layer and decode tick."""
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    cfg = _bf16_at_hd64(name)
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts = [np.arange(n, dtype=np.int32) % cfg.vocab for n in
+               (3, 11, 6, 17, 9)]
+
+    def serve(kernels):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            n_slots=3, max_seq=32, max_new_tokens=6), kernels=kernels,
+            device="cpu")
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr))
+        done = eng.run_until_drained()
+        assert len(done) == len(prompts) and not eng.failed
+        return {r.rid: list(r.output) for r in done}, eng.stats["ticks"]
+
+    calls = []
+    kernels = model_kernels(cfg)
+    kernels["decode_attention"] = _counting(kernels["decode_attention"],
+                                            calls)
+    got, ticks = serve(kernels)
+    want, _ = serve(None)
+    assert got == want
+    attn_layers = sum(l.mixer == "attn" for l in cfg.layer_plan())
+    assert len(calls) == ticks * attn_layers > 0
