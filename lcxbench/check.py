@@ -25,10 +25,16 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import families
+
 
 def reference(cfg: Dict):
-    """The configuration's plain reference module, found by name."""
-    return importlib.import_module(f"lcxbench.reference.{cfg['reference']}")
+    """The configuration's plain reference module, found by name: a module
+    of ``lcxbench/reference/``, or any importable module by its dotted
+    name."""
+    name = cfg["reference"]
+    return importlib.import_module(name if "." in name
+                                   else f"lcxbench.reference.{name}")
 
 
 def sample(finished: Sequence, seed: int, served_tokens: int) -> List:
@@ -123,7 +129,7 @@ def gaps(cfg: Dict, params: Dict, reqs: Sequence, device,
     gap, the control's, the reference's margin and whether the
     program's sets agreed."""
     ref = reference(cfg)
-    moe = bool(cfg.get("n_routed_experts"))
+    moe = bool(families.of(cfg).routed_experts(cfg))
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -22,7 +22,7 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
-from . import bench, check, isolation, model, readers, weights
+from . import bench, check, families, isolation, model, readers, weights
 from .bench import Cell
 from .serve import Window
 from .traffic import Traffic, max_seq
@@ -37,6 +37,7 @@ class Run:
     window: Window
     setup_s: float
     profile: Optional[object] = None
+    memory_peak_bytes: int = 0
 
     @property
     def cfg(self) -> Dict:
@@ -74,6 +75,7 @@ def build(cell: Cell, seed: int, device: str, mix: Optional[Dict] = None):
         raise ValueError(f"{cell.name}: a slot of {max_seq(mix)} positions "
                          f"passes the model's {cfg['max_position_embeddings']}")
     port_cfg = model.port_config(cfg)
+    model.check_kinds(cfg, port_cfg)
     params = weights.draw(cfg, seed, device, port_cfg.param_dtype)
     model.check_layout(port_cfg, params)
     kernels = model_kernels(port_cfg)
@@ -98,8 +100,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
     cfg, mix = cell.cfg, cell.mix
     engine, params, kernels = build(cell, seed, device)
-    routes = RouteLog(engine).install() if cfg.get("n_routed_experts") \
-        else None
+    routes = RouteLog(engine).install() \
+        if families.of(cfg).routed_experts(cfg) else None
     tracer = None
     if trace:
         tracer = Tracer(engine, kernels, TRACE_AT * seconds,
@@ -125,7 +127,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         if profile is not None:
             dev["busy_s"] = profile.busy_us() / 1e6
             dev["window_s"] = profile.window_us / 1e6
-    r = Run(cell, window, setup_s, profile)
+    r = Run(cell, window, setup_s, profile, dev["memory_peak_bytes"])
     metrics = {}
     for m in cell.metrics(trace):
         v = readers.reader(m["name"])(r)

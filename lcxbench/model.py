@@ -1,13 +1,17 @@
 """A configuration file of ``lcxbench/configs/`` as the program's
 ``ModelConfig``: the architecture the file names, with every size the
-file states put in its place.  A setting the program cannot run as the
-file states it is refused here, before any weight is drawn."""
+file states put in its place (``FIELDS`` and its family's ``fields``).
+A setting the program cannot run as the file states it (``PROGRAM`` and
+its family's ``program``) is refused here, before any weight is
+drawn."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict
 
 import torch
+
+from . import families
 
 # the file's key -> the program's field
 FIELDS = {
@@ -38,7 +42,7 @@ PROGRAM = {"hidden_act": "silu", "rope_scaling": None, "n_group": 1,
            "num_nextn_predict_layers": 0}
 
 
-def _as_program(key: str, value: Any) -> bool:
+def _as_program(key: str, value: Any, program: Dict) -> bool:
     """Whether the file's ``value`` of ``key`` is what the program computes.
     Dynamic NTK rotary scaling changes no frequency up to
     ``max_position_embeddings``, past which no cell's cache reaches
@@ -46,22 +50,24 @@ def _as_program(key: str, value: Any) -> bool:
     if key == "rope_scaling" and isinstance(value, dict) \
             and value.get("type") == "dynamic":
         return True
-    return value == PROGRAM[key]
+    return value == program[key]
 
 
 def port_config(cfg: Dict) -> Any:
     """The program's ``ModelConfig`` for the configuration file ``cfg``."""
     from repro_torch.configs.base import get_config
+    fam = families.of(cfg)
+    fields, program = {**FIELDS, **fam.fields}, {**PROGRAM, **fam.program}
     departs = cfg.get("departures", {})
-    for key in PROGRAM:
-        if key in cfg and not _as_program(key, cfg[key]) \
+    for key in program:
+        if key in cfg and not _as_program(key, cfg[key], program) \
                 and key not in departs:
             raise ValueError(f"{cfg['name']}: {key}={cfg[key]!r}, but the "
-                             f"program computes {key}={PROGRAM[key]!r} and "
+                             f"program computes {key}={program[key]!r} and "
                              f"the file names no such departure")
     base = get_config(cfg["arch"])
-    over = {FIELDS[k]: (PROGRAM[k] if k in departs else v)
-            for k, v in cfg.items() if k in FIELDS}
+    over = {fields[k]: (program[k] if k in departs else v)
+            for k, v in cfg.items() if k in fields}
     if "scoring_func" in cfg:
         over["router_type"] = {"sigmoid": "sigmoid",
                                "softmax": "softmax"}[cfg["scoring_func"]]
@@ -83,3 +89,16 @@ def check_layout(port_cfg: Any, params: Dict) -> None:
     if want != got:
         diff = sorted(set(want.items()) ^ set(got.items()), key=str)[:6]
         raise ValueError(f"weights do not fit the program's layout: {diff}")
+
+
+def check_kinds(cfg: Dict, port_cfg: Any) -> None:
+    """Raise unless the family's ``layer_kinds`` of ``cfg`` are the
+    program's layer plan for ``port_cfg``: the counts count the layers
+    that run."""
+    want = [(s.mixer, s.ffn) for s in port_cfg.layer_plan()]
+    got = [tuple(k) for k in families.of(cfg).layer_kinds(cfg)]
+    if want != got:
+        bad = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+        raise ValueError(f"{cfg['name']}: the family's layer kinds {got[:8]}"
+                         f" are not the program's plan {want[:8]} (first "
+                         f"difference at layer {bad[:1] or len(got)})")

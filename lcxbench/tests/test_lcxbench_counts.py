@@ -4,6 +4,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from lcxbench import counts, readers  # noqa: E402
+from lcxbench.families import decoder  # noqa: E402
 from lcxbench.tests import smoke  # noqa: E402
 
 
@@ -24,17 +25,17 @@ def test_gmm_bounds_read_chosen_experts_and_capacity():
     (2, 3, 1 rows); a capacity of 2 keeps 2 + 2 + 1 of them."""
     cfg = smoke.config("deepseek-v3-5l")
     ids = torch.tensor([[0, 1], [1, 2], [0, 1]])
-    recs = [("route", ids), ("gmm", (4, 8, 64), (4, 64, 32), True),
-            ("gmm", (4, 2, 64), (4, 64, 32), True)]
-    got = readers.launch_bounds(cfg, recs, "gmm")
+    recs = [("route", ids), ("moe_gmm", (4, 8, 64), (4, 64, 32), True),
+            ("moe_gmm", (4, 2, 64), (4, 64, 32), True)]
+    got = readers.launch_bounds(cfg, recs, "moe_gmm")
     assert got == [counts.bound_s(*counts.gmm_work(6, 3, 64, 32)),
                    counts.bound_s(*counts.gmm_work(5, 3, 64, 32))]
 
 
 def test_flash_bounds_scale_with_batch():
-    recs = [("flash", (2, 16, 4, 8), (2, 16, 2, 8), True)]
+    recs = [("flash_attention", (2, 16, 4, 8), (2, 16, 2, 8), True)]
     fl, nb = counts.flash_work(4, 2, 16, 16, 8, True)
-    assert readers.launch_bounds({}, recs, "flash") == [
+    assert readers.launch_bounds({}, recs, "flash_attention") == [
         counts.bound_s(2 * fl, 2 * nb)]
 
 
@@ -43,7 +44,7 @@ def test_dense_model_counts():
     d, h, hkv, f, v, n = 96, 6, 2, 256, 128, 2
     hd = d // h
     body = n * (d * h * hd + 2 * d * hkv * hd + h * hd * d + 3 * d * f)
-    assert counts.body_params(cfg) == body
+    assert decoder.body_params(cfg) == body
     per_key = 4 * h * hd
     assert counts.prefill_flops(cfg, 5) == (2 * body * 5 + per_key * n * 15
                                             + 2 * d * v)
@@ -58,8 +59,8 @@ def test_mla_moe_model_counts():
            + kl * h * vd + h * vd * d)
     dense = 3 * d * 160
     moe = d * 8 + (2 + 1) * 3 * d * 64
-    assert counts.body_params(cfg) == 3 * mla + 1 * dense + 2 * moe
-    assert counts.attn_flops_per_key(cfg) == 2 * h * (nope + rope + vd)
+    assert decoder.body_params(cfg) == 3 * mla + 1 * dense + 2 * moe
+    assert decoder.attn_flops_per_key(cfg) == 2 * h * (nope + rope + vd)
 
 
 def test_peaks_are_the_datasheet_values():

@@ -26,7 +26,9 @@ def test_last_line_keys_and_end_to_end_metrics():
     cell = smoke.cell("deepseek-v3-5l", "open")
     res, lines = _run(cell)
     assert list(res) == KEYS and res["correct"] is True
-    assert set(res["metrics"]) == {m["name"] for m in cell.end_to_end}
+    # a reading of the card's memory has nothing to read on the CPU
+    assert set(res["metrics"]) == {m["name"] for m in cell.end_to_end
+                                   if m["name"] != "memory_peak_gib"}
     assert all(set(v) == {"value", "unit"} for v in res["metrics"].values())
     assert set(res["device"]) >= {"platform", "kind", "count",
                                   "memory_peak_bytes"}
@@ -48,6 +50,28 @@ def test_traced_run_reads_the_host_metrics():
     assert res["correct"] is True
     assert set(res["metrics"]) == set(host)
     assert 0 < res["metrics"]["model.mfu.decode"]["value"] < 100
+
+
+def test_memory_peak_reads_the_device_peak_and_nothing_without_one():
+    from types import SimpleNamespace
+    from lcxbench.readers import reader
+    read = reader("memory_peak_gib")
+    assert read(SimpleNamespace(memory_peak_bytes=47336140800)) == \
+        pytest.approx(47336140800 / 2 ** 30, rel=1e-12)
+    assert read(SimpleNamespace(memory_peak_bytes=0)) is None
+
+
+def test_closed_output_rate_per_layer_is_the_windows_rate():
+    """Tokens delivered up to the close over the window; the per-layer
+    name reads the same number."""
+    from types import SimpleNamespace
+    from lcxbench.readers import reader
+    recs = {0: SimpleNamespace(times=[0.5, 1.0, 2.5]),
+            1: SimpleNamespace(times=[1.5])}
+    run = SimpleNamespace(window=SimpleNamespace(close=2.0, records=recs))
+    assert reader("output_tokens_per_s")(run) == pytest.approx(1.5)
+    assert reader("engine.output_tokens_per_s.closed")(run) == \
+        pytest.approx(1.5)
 
 
 def _served_wrong(monkeypatch, fault):

@@ -1,5 +1,7 @@
 """The traffic generator: the same requests from the same seed, the
 stated length ranges, and the same sizes for every seed."""
+import math
+
 import numpy as np
 import pytest
 
@@ -59,3 +61,33 @@ def test_quantile_lengths_span_the_range():
     assert v == sorted(v) and 2048 <= v[0] and v[-1] <= 8192
     with pytest.raises(ValueError):
         quantile_lengths({"dist": "zipf", "min": 1, "max": 2}, 3)
+
+
+def test_open_runs_replay_one_schedule_for_every_seed():
+    """163 requests (dsv3-chat's 3.2 req/s over 51 s): every seed gets the
+    same due times, prompt lengths and answers, drawn from
+    ``SCHEDULE_SEED``, and its own tokens; the gaps between arrivals are
+    the exponential set in an order that bunches some (Poisson)."""
+    from lcxbench.traffic import SCHEDULE_SEED, _rng
+    mix = smoke.mix("open", rate_rps=3.2,
+                    prompt={"dist": "loguniform", "min": 256, "max": 4096})
+    runs = [Traffic(mix, seed, 51.0, 1000).open_requests()
+            for seed in (1, 2 ** 33 + 7)]
+    sched = [[(r.due, len(r.prompt), r.out_len) for r in reqs]
+             for reqs in runs]
+    assert sched[0] == sched[1]
+    assert [len(r.prompt) for r in runs[0]] == _rng(
+        SCHEDULE_SEED, 0).permutation(
+            quantile_lengths(mix["prompt"], 163)).tolist()
+    assert any(a.prompt.tolist() != b.prompt.tolist()
+               for a, b in zip(*runs))
+    gaps = np.diff([r.due for r in runs[0]])
+    full = [-math.log(1.0 - (i + 0.5) / 163) for i in range(163)]
+    full = np.sort(full) * (51.0 / sum(full))
+    at = np.clip(np.searchsorted(full, gaps), 1, 162)
+    near = np.where(full[at] - gaps < gaps - full[at - 1], at, at - 1)
+    np.testing.assert_allclose(full[near], gaps, rtol=0, atol=1e-9)
+    assert len(set(near.tolist())) == 162      # all but one, none twice
+    # bursts: some second of the window holds twice the mean arrivals
+    per_s = np.bincount(np.floor([r.due for r in runs[0]]).astype(int))
+    assert per_s.max() >= 2 * 3.2

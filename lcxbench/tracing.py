@@ -6,8 +6,9 @@ calls into each layer with ``torch.profiler.record_function`` spans:
 its LCX runtime), ``admission/prefill`` (one request's admission task),
 ``decode`` (the decode task) with ``sampling`` inside it, and
 ``sleeping for arrivals``.  While the sub-window runs it also records,
-in order, each routing (the router's expert ids) and each launch of the
-grouped-matmul and flash-attention hooks with its shapes.
+in order, each routing (the router's expert ids) and each call of a
+kernel hook that has a bounds file (``lcxbench/kernels/<hook>.py``), as
+that file's ``record`` keeps it.
 
 The sub-window is ``trace_ticks`` ticks (the mix file says how many)
 from the middle of the window (see ``Tracer.before_tick``); a marker
@@ -22,6 +23,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from . import kernels as kernel_bounds
 
 LABELS = ("amt tick", "admission/prefill", "decode", "sampling",
           "sleeping for arrivals")
@@ -111,9 +114,11 @@ class Tracer:
             return out
 
         self._patch(moe, "route", recorded_route)
-        for key, kind in (("moe_gmm", "gmm"), ("flash_attention", "flash")):
-            if key in self.kernels:
-                self.kernels[key] = self._recorded(kind, self.kernels[key])
+        for hook in self.kernels:
+            bounds = kernel_bounds.for_hook(hook)
+            if bounds is not None:
+                self.kernels[hook] = self._recorded(hook, bounds,
+                                                    self.kernels[hook])
         return self
 
     def _patch(self, module, name, value) -> None:
@@ -125,12 +130,11 @@ class Tracer:
             setattr(module, name, value)
         self._restore = []
 
-    def _recorded(self, kind, fn):
-        def wrapped(a, b, *rest, **kw):
+    def _recorded(self, hook, bounds, fn):
+        def wrapped(*a, **kw):
             if self.recording:
-                self.launches.append((kind, tuple(a.shape), tuple(b.shape),
-                                      kw.get("causal", True)))
-            return fn(a, b, *rest, **kw)
+                self.launches.append((hook, *bounds.record(a, kw)))
+            return fn(*a, **kw)
         return wrapped
 
     def sleep(self, seconds: float) -> None:

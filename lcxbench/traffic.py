@@ -6,14 +6,19 @@ A mix states its loop (``"open"``: Poisson arrivals at ``rate_rps``;
 last one finished), ``n_slots`` (the engine's batch), and the prompt and
 output lengths as ``{"dist": "loguniform", "min": a, "max": b}``.
 
-Every seed gets the same set of sizes and arrivals, in another order, so
-the seed changes which tokens and which order, not how much work: the
-lengths are the distribution's quantiles at ``(i + 0.5) / n`` and the
-gaps between arrivals the exponential's, shuffled by the seed.  An open
-run's ``round(rate x seconds)`` requests are all due inside the window,
-the gaps scaled to fill it.  A closed run deals its clients one such set
-of ``clients`` requests per round: a client's r-th request comes from
-round r.
+Every seed gets the same set of sizes and arrivals, so the seed changes
+which tokens, not how much work: the lengths are the distribution's
+quantiles at ``(i + 0.5) / n`` and the gaps between arrivals the
+exponential's.  An open run replays one schedule, the same for every
+seed: its ``round(rate x seconds)`` requests are all due inside the
+window, the gaps in an order drawn once from ``SCHEDULE_SEED`` (Poisson
+arrivals, with their bursts and lulls) and scaled to fill it, each with
+its prompt and output length drawn from the same stream; the run's seed
+draws the prompts' tokens.  As MLPerf Inference's LoadGen fixes the
+query schedule of its server scenario (``schedule_rng_seed``), so that a
+run's tail is not a draw of which long prompts meet in one burst.  A
+closed run deals its clients one such set of ``clients`` requests per
+round, shuffled by the seed: a client's r-th request comes from round r.
 """
 from __future__ import annotations
 
@@ -41,6 +46,9 @@ def quantile_lengths(spec: Dict, n: int) -> List[int]:
     lo, hi = math.log(spec["min"]), math.log(spec["max"])
     return [int(round(math.exp(lo + (i + 0.5) / n * (hi - lo))))
             for i in range(n)]
+
+
+SCHEDULE_SEED = 0      # the open runs' one schedule
 
 
 def _rng(seed: int, *stream: int) -> np.random.Generator:
@@ -75,7 +83,7 @@ class Traffic:
         """Every request of an open run, in order of due time."""
         rate = float(self.mix["rate_rps"])
         n = max(1, int(round(rate * self.seconds)))
-        rng = _rng(self.seed, 0)
+        rng = _rng(SCHEDULE_SEED, 0)
         plens = rng.permutation(quantile_lengths(self.mix["prompt"], n))
         olens = rng.permutation(quantile_lengths(self.mix["output"], n))
         gaps = rng.permutation([-math.log(1.0 - (i + 0.5) / n)
